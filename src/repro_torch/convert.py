@@ -1,0 +1,76 @@
+"""Convert params between the reference's numpy trees and the port.
+
+A reference param tree (``jax.tree_util.tree_map(np.asarray, params)``) is
+a nested dict of numpy arrays. Its leaves, in ``jax.tree_util`` order, are
+``blocks/attn/{wk,wo,wq,wv}``, ``blocks/ln1``, ``blocks/ln2``,
+``blocks/mlp/{w_down,w_gate,w_up}``, then ``embed``, ``final_norm`` and
+``lm_head``; :func:`repro_torch.models.lm.flatten` walks the port's params
+in the same order.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .models.common import ModelConfig
+from .models.lm import flatten, unflatten
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """'/'-joined path -> shape of every dense-family param leaf."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    L, F, V = cfg.n_layers, cfg.d_ff, cfg.vocab
+    shapes = {
+        "blocks/attn/wk": (L, D, KV, hd), "blocks/attn/wo": (L, H, hd, D),
+        "blocks/attn/wq": (L, D, H, hd), "blocks/attn/wv": (L, D, KV, hd),
+        "blocks/ln1": (L, D), "blocks/ln2": (L, D),
+        "blocks/mlp/w_down": (L, F, D), "blocks/mlp/w_gate": (L, D, F),
+        "blocks/mlp/w_up": (L, D, F),
+        "embed": (V, D), "final_norm": (D,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, V)
+    return shapes
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's params from a reference tree of numpy arrays.
+
+    Keys and shapes are checked against ``cfg``; dtypes are kept."""
+    device = resolve_device(device)
+    leaves = dict(flatten(tree))
+    want = param_shapes(cfg)
+    if set(leaves) != set(want):
+        raise ValueError(f"param keys differ: missing "
+                         f"{sorted(set(want) - set(leaves))}, unexpected "
+                         f"{sorted(set(leaves) - set(want))}")
+    out = []
+    for path, shape in want.items():
+        a = np.asarray(leaves[path])
+        if a.shape != shape:
+            raise ValueError(f"{path}: shape {a.shape}, config wants {shape}")
+        out.append((path, _to_torch(a).to(device)))
+    return unflatten(out)
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A nested dict of numpy arrays with the same keys, for the reference.
+
+    numpy has no bfloat16, so bfloat16 leaves come back as float32, which
+    holds them exactly."""
+    def conv(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return unflatten((path, conv(t)) for path, t in flatten(params))

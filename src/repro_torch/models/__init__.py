@@ -1,0 +1,4 @@
+"""Model substrate of the port: the dense decoder LM for serving."""
+
+from .common import ModelConfig  # noqa: F401
+from .lm import LM, build_model  # noqa: F401

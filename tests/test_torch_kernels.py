@@ -1,0 +1,220 @@
+"""Plain versions of the port's kernels against the Pallas kernels
+(interpret mode) and their JAX oracles, plus the wrappers' dispatch.
+
+Inputs are made with numpy from a seed and handed to both frameworks.
+Tolerances are those of tests/test_kernels.py: f32 2e-3, bf16 5e-2.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import kernel as DK  # noqa: E402
+from repro.kernels.decode_attention import ref as DR  # noqa: E402
+from repro.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro.kernels.flash_attention import ref as FR  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as TDR  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as TFR  # noqa: E402
+
+TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+       "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+FLASH_SHAPES = [
+    # (B, H, KV, Sq, Sk, hd, causal), as tests/test_kernels.py
+    (1, 2, 2, 32, 32, 16, True),
+    (2, 4, 2, 33, 33, 16, True),    # GQA + ragged
+    (1, 4, 1, 48, 48, 32, True),    # MQA
+    (1, 2, 2, 16, 64, 16, False),   # cross-shaped, non-causal
+    (2, 2, 2, 64, 64, 8, True),
+]
+
+DECODE_SHAPES = [
+    # (B, H, KV, S, hd, cache_len), as tests/test_kernels.py
+    (2, 4, 2, 64, 16, 64),
+    (1, 4, 4, 96, 32, 50),
+    (3, 8, 2, 128, 16, 128),
+    (1, 2, 1, 40, 8, 7),
+]
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch CPU tensor of ``dtype``
+    (both frameworks round float32 to bfloat16 to nearest even)."""
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_and_ref(shape, dtype):
+    B, H, KV, Sq, Sk, hd, causal = shape
+    rng = np.random.RandomState(0)
+    qn = rng.randn(B, Sq, H, hd).astype(np.float32)
+    kn = rng.randn(B, Sk, KV, hd).astype(np.float32)
+    vn = rng.randn(B, Sk, KV, hd).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (qn, kn, vn))
+    # the JAX package's layout is (B, heads, S, hd)
+    qj, kj, vj = (a.transpose(0, 2, 1, 3) for a in (qj, kj, vj))
+    o_t, lse_t = TFR.flash_attention_ref(qt, kt, vt, causal=causal)
+    assert o_t.dtype == qt.dtype and lse_t.dtype == torch.float32
+    o_pl, lse_pl = FK.flash_fwd(qj, kj, vj, causal=causal, bq=16, bk=16)
+    o_ref = FR.attention_ref(qj, kj, vj, causal=causal)
+    o_t = _np(o_t).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(o_t, _np(o_pl), **TOL[dtype])
+    np.testing.assert_allclose(o_t, _np(o_ref), **TOL[dtype])
+    np.testing.assert_allclose(_np(lse_t), _np(lse_pl), rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(_np(lse_t),
+                               _np(FR.lse_ref(qj, kj, causal=causal)),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_plain_matches_pallas_and_ref(shape, dtype):
+    B, H, KV, S, hd, clen = shape
+    rng = np.random.RandomState(1)
+    qn = rng.randn(B, H, hd).astype(np.float32)
+    kn = rng.randn(B, S, KV, hd).astype(np.float32)
+    vn = rng.randn(B, S, KV, hd).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (qn, kn, vn))
+    kj, vj = kj.transpose(0, 2, 1, 3), vj.transpose(0, 2, 1, 3)
+    o_t = _np(TDR.decode_attention_ref(qt, kt, vt, clen))
+    o_pl = DK.decode_attention(qj, kj, vj, clen, bk=32)
+    o_ref = DR.decode_attention_ref(qj, kj, vj, clen)
+    np.testing.assert_allclose(o_t, _np(o_pl), **TOL[dtype])
+    np.testing.assert_allclose(o_t, _np(o_ref), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens", [[1, 64, 33], [64, 7, 200], [5, 5, 5]])
+def test_decode_plain_per_row_lengths_match_model_decode(lens, dtype):
+    """(B,) lengths, one past the end of the cache, against the JAX
+    package's plain decode (models/attention.py decode_attention), which
+    admits all S rows for such a length."""
+    B, H, KV, S, hd = 3, 8, 2, 64, 16
+    rng = np.random.RandomState(2)
+    qn = rng.randn(B, H, hd).astype(np.float32)
+    kn = rng.randn(B, S, KV, hd).astype(np.float32)
+    vn = rng.randn(B, S, KV, hd).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (qn, kn, vn))
+    ln = np.asarray(lens, np.int32)
+    o_t = TDR.decode_attention_ref(qt, kt, vt, torch.from_numpy(ln))
+    o_j = JA.decode_attention(qj, kj, vj, jnp.asarray(ln))
+    np.testing.assert_allclose(_np(o_t), _np(o_j), **TOL[dtype])
+
+
+def test_decode_plain_empty_row_is_zero():
+    """A length of 0 attends over nothing: the row is 0, as in the kernel."""
+    q = torch.randn(2, 4, 16)
+    kc, vc = torch.randn(2, 8, 2, 16), torch.randn(2, 8, 2, 16)
+    o = TDR.decode_attention_ref(q, kc, vc, torch.tensor([0, 8]))
+    assert torch.all(o[0] == 0)
+    full = TDR.decode_attention_ref(q[1:], kc[1:], vc[1:], 8)
+    torch.testing.assert_close(o[1:], full, rtol=0, atol=0)
+
+
+def test_cpu_tensors_go_to_the_plain_versions():
+    """The wrappers send a CPU tensor to the plain version: its counter
+    moves, the kernel's does not, and the results are the plain ones."""
+    q, k, v = torch.randn(1, 5, 4, 16), torch.randn(1, 5, 2, 16), \
+        torch.randn(1, 5, 2, 16)
+    f0, fr0 = FO.flash_attention.launches, TFR.flash_attention_ref.launches
+    o, lse = FO.flash_attention(q, k, v, causal=True)
+    assert (FO.flash_attention.launches, TFR.flash_attention_ref.launches) \
+        == (f0, fr0 + 1)
+    o_ref, lse_ref = TFR.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
+    d0, dr0 = DO.decode_attention.launches, TDR.decode_attention_ref.launches
+    out = DO.decode_attention(q[:, 0], k, v, torch.tensor([3]))
+    assert (DO.decode_attention.launches, TDR.decode_attention_ref.launches) \
+        == (d0, dr0 + 1)
+    assert out.shape == (1, 4, 16)
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor on neither the CPU nor a card is refused, not computed."""
+    q = torch.empty(1, 4, 2, 16, device="meta")
+    k = torch.empty(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        FO.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        DO.decode_attention(q[:, 0], k, k, 3)
+
+
+def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
+    """With no nvcc and no built library, building raises: no fallback."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["decode"])
+
+
+def test_kernel_input_checks():
+    """The shape, dtype and layout checks the wrappers run before a
+    launch (on a card) refuse what the kernels do not take."""
+    q, k = torch.randn(1, 4, 8, 16), torch.randn(1, 4, 2, 16)
+    FO._check(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        FO._check(q[..., :8], k[..., :8], k[..., :8])
+    with pytest.raises(ValueError, match="do not divide"):
+        FO._check(q, torch.randn(1, 4, 3, 16), torch.randn(1, 4, 3, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        FO._check(q, k.transpose(-1, -2).contiguous().transpose(-1, -2), k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FO._check(q.half(), k.half(), k.half())
+    FO._check(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    odd = torch.randn(1, 4, 2, 17).bfloat16()[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FO._check(q.bfloat16(), odd, odd)
+    DO._check(q[:, 0], k, k)
+    with pytest.raises(ValueError, match="do not match"):
+        DO._check(q[:, 0], k, k[:, :3])
+    odd = torch.randn(1, 4, 2, 18)[..., 2:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        DO._check(q[:, 0], odd, odd)
+    assert DO._lens_on_device(7, 3, "cpu").tolist() == [7, 7, 7]
+    with pytest.raises(ValueError, match="scalar or"):
+        DO._lens_on_device([1, 2], 3, "cpu")
+    with pytest.raises(TypeError, match="integers"):
+        DO._lens_on_device(torch.tensor([1.0, 2.0, 3.0]), 3, "cpu")
+
+
+def test_kernel_input_checks_refuse_mixed_devices():
+    """A K/V tensor on another device than q is refused before a launch."""
+    q, k = torch.randn(1, 4, 8, 16), torch.randn(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="is on"):
+        FO._check(q, k.to("meta"), k)
+    with pytest.raises(ValueError, match="is on"):
+        DO._check(q[:, 0], k, k.to("meta"))
+
+
+@pytest.mark.parametrize("ln, at, attend", [
+    (torch.tensor(5, dtype=torch.int32), 5, [6, 6, 6]),
+    (torch.tensor(9, dtype=torch.int32), 7, [10, 10, 10]),
+    (torch.tensor([0, 7, 30], dtype=torch.int32), [0, 7, 7], [1, 8, 31]),
+])
+def test_decode_rows_clamp_writes_and_hand_lengths_over(ln, at, attend):
+    """A decode step's write rows are clamped to the cache (S=8) and its
+    (B,) int32 lengths go to the kernel wrapper as they are."""
+    from repro_torch.models.attention import decode_rows
+    got_at, got_attend = decode_rows(ln, 3, 8)
+    assert got_at.dim() == ln.dim() and got_at.tolist() == at
+    assert got_attend.dtype == torch.int32 and got_attend.is_contiguous()
+    assert got_attend.tolist() == attend
+    assert DO._lens_on_device(got_attend, 3, "cpu") is got_attend
