@@ -4,21 +4,32 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/**/csrc``, holds each
-kernel against its plain PyTorch version on the card, then serves yi-6b at
-full width (random weights from a seed) through ``ServeEngine.generate``
-(uniform and ragged prompts) and ``RequestScheduler`` over
-``TPServeEngine(world=None)``, and shows from the launch counters that
-this run went through the kernels. It then holds the kernel path against
-the plain path at full width, times the kernels and the serving steps, and
-prints:
+kernel against its plain PyTorch version on the card (the backward kernels
+also against planted faults and against a second run, bit for bit), then
+drives the port's two main paths at full width with random weights from a
+seed, and shows from the launch counters, set to 0 just before each path
+and read just after, that each went through the kernels:
 
-* a ``{"kernels": [...]}`` line: per kernel its launches on the serving
-  run (in all, and on each of its three paths), its error against the
-  plain version, its time, the plain version's and
-  ``torch.nn.functional.scaled_dot_product_attention``'s time at the same
-  inputs, and the card's least time for the same work (``bound_ms``);
+* serving yi-6b through ``ServeEngine.generate`` (uniform and ragged
+  prompts) and ``RequestScheduler`` over ``TPServeEngine(world=None)``;
+* training gpt2-124m: 6 steps of ``make_train_step`` (AdamW) on one fixed
+  batch of 8 x 1024 tokens, with remat "full", each step counted on its
+  own: 24 forward launches, 12 of each backward kernel, 0 of the plain
+  versions.
+
+It holds the kernel path against the plain path at full width (logits
+while serving, loss and gradients while training), the float32 smoke
+models' card runs against their CPU runs, times the kernels, the serving
+steps and the train step, and prints:
+
 * a ``{"serving": ...}`` line: prefill ms, decode ms per step, tokens/s,
   peak memory;
+* a ``{"training": ...}`` line: train-step ms, tokens/s, device-busy ms and
+  idle share from ``torch.profiler``, peak memory, the losses;
+* a ``{"kernels": [...]}`` line: per kernel its launches on the main
+  paths (in all, and on each path), its error against the plain version,
+  its time, the plain version's and one PyTorch call's time at the same
+  inputs, and the card's least time for the same work (``bound_ms``);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -44,14 +55,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import yi_6b  # noqa: E402
+from repro_torch.configs import gpt2_124m, yi_6b  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as FR  # noqa: E402
+from repro_torch.launch import make_train_step, value_and_grad  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.lm import flatten, unflatten  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.serving import (RequestScheduler, ServeEngine,  # noqa: E402
                                  TPServeEngine)
 
@@ -79,6 +93,49 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-4)       # float32 in both
 # order of one bf16 ulp and 32 layers compound it (0.0086 measured on an
 # H100, see PERF.md).
 LOGITS_REL_L2 = 2e-2
+# Backward kernels against the plain backward, per gradient (dq, dk, dv):
+# the relative L2 error of each batch row within REL_L2, and elementwise
+# |d| <= rtol * |ref| + atol_rms * max(rms of ref's (b, s, head) vector,
+# rms of ref). The bf16
+# body rounds P and dS to bf16 before their products and each output to
+# bf16: one bf16 ulp is 2^-8..2^-7 of an element, which rtol covers, and
+# the batch-row error measured on an H100 is 0.0025-0.0029 (PERF.md). The
+# absolute error of an element follows the size of the terms summed into
+# it, not the element: an element of an early key's dK that cancels to
+# near 0 from terms of order 1 carries ~0.006 of rounding (measured at the
+# training shape). So atol is a share of the root mean square of the
+# element's own (b, s, head) vector, whose terms are of that size, or of
+# the whole tensor where that is larger: a vector that cancels to exactly
+# 0 in the plain version (dQ of query 0, whose dS is P (dP - delta) with
+# dP = delta) is a rounding residue in the kernel.
+BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol_rms=5e-2),
+           "float32": dict(rtol=1e-4, atol_rms=1e-4)}
+# gpt2-124m at full width, kernel path against plain path on the same
+# params and batch: the loss's relative error and the relative L2 error of
+# all the gradients flattened into one vector. Measured on an H100:
+# 1.3e-6 and 0.0076 (bf16 P and dS in the kernels, over 12 layers); the
+# same limits must reject planted faults of the plain attention at full
+# width (PERF.md has the readings).
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL_L2 = 2e-2
+# The embedding and MLP leaves dominate that global norm, so a fault of one
+# layer's or one head's attention could hide in it. Each layer's slice of
+# the attention weights' gradients (wq, wk, wv, wo) is also held on its
+# own: the largest relative L2 error over those 48 slices. Measured on an
+# H100: 0.0191 (wq of the last layer); the nearest planted fault, a 64-row
+# K/V tile dropped in the first layer's first head only, reads 0.0683
+# (PERF.md has the others).
+TRAIN_ATTN_SLICE_REL_L2 = 3.5e-2
+ATTN_LEAVES = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
+               "blocks/attn/wo")
+# The float32 smoke model, 3 train steps on the card against the CPU:
+# losses, and each param leaf's relative L2 error after the steps
+# (measured 2.5e-7 and 5.3e-6: AdamW's first steps move each weight by
+# about lr whatever the size of its gradient, so a gradient of float32
+# rounding size still moves a param).
+SMOKE_TRAIN_REL = 5e-5
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 6
 
 SERVE_MAX_LEN = 544          # 512-token prompts + 32 new tokens
 PROMPT_LENS = [128, 256, 384, 512]
@@ -204,14 +261,18 @@ def agreement(kernel: str, out, ref):
 
 def plain_masked(q, k, v, mask):
     """Softmax attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd) in
-    float32, where ``mask`` (B, Sq, Sk) is True; a row with no key is 0.
-    Only the planted faults below use it."""
+    float32, where ``mask`` ((B,) Sq, Sk) is True; a row with no key is 0.
+    Returns (o, lse), as the forward does. Only the planted faults use
+    it."""
     H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
     kr = k.float().repeat_interleave(H // KV, dim=2)
     vr = v.float().repeat_interleave(H // KV, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5, kr)
-    p = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.nan_to_num(0.0), vr).to(q.dtype)
+    s = s.masked_fill(~(mask[:, None] if mask.dim() == 3 else mask),
+                      float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+    return o, torch.logsumexp(s, dim=-1)
 
 
 def flash_faults(q, k, v, causal):
@@ -223,7 +284,7 @@ def flash_faults(q, k, v, causal):
     faults = {"one key off": kp <= qp + 1 if causal else kp < Sk - 1}
     if Sk > 64 and (Sq > 64 or not causal):
         faults["64-key chunk dropped"] = right & ((kp < 64) | (kp >= 128))
-    return {f: plain_masked(q, k, v, m.expand(B, Sq, Sk))
+    return {f: plain_masked(q, k, v, m.expand(B, Sq, Sk))[0]
             for f, m in faults.items()}
 
 
@@ -234,7 +295,7 @@ def decode_faults(q, kc, vc, lens):
     faults = {"length off by one": kp < ln - 1}
     if (ln > 64).any():
         faults["64-row chunk dropped"] = (kp < ln) & ((kp < 64) | (kp >= 128))
-    return {f: plain_masked(q[:, None], kc, vc, m)[:, 0]
+    return {f: plain_masked(q[:, None], kc, vc, m)[0][:, 0]
             for f, m in faults.items()}
 
 
@@ -295,6 +356,149 @@ def check_kernels(device):
     return errs
 
 
+def bwd_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, H, KV, Sq, Sk, hd, dtype, causal)
+    return [("gpt2-124m training", TRAIN_B, 12, 12, TRAIN_S, TRAIN_S, 64, bf,
+             True),
+            ("smoke trainer", 2, 4, 4, 32, 32, 32, bf, True),
+            ("smoke trainer", 2, 4, 4, 32, 32, 32, f32, True),
+            ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, True),
+            ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, False),
+            ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, True),
+            ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, False),
+            ("GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
+            ("GQA causal Sq>Sk", 2, 8, 2, 100, 70, 16, bf, True),
+            ("GQA causal Sq<Sk", 2, 4, 2, 40, 70, 64, bf, True)]
+
+
+def grad_agreement(out, ref):
+    """(ok, max |out - ref|, largest relative L2 error of a batch row,
+    largest |d| / (rtol |ref| + atol_rms max(rms(ref's (b, s, head)
+    vector), rms(ref))) of an element, which passes at <= 1)."""
+    name = str(ref.dtype).replace("torch.", "")
+    tol = BWD_TOL[name]
+    r = ref.float()
+    d = out.float() - r
+    rel = (d.flatten(1).norm(dim=1)
+           / r.flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
+    scale = r.square().mean(-1, keepdim=True).sqrt().clamp_min(
+        r.square().mean().sqrt())
+    bound = tol["rtol"] * r.abs() + tol["atol_rms"] * scale
+    elem = (d.abs() / bound.clamp_min(1e-30)).max().item()
+    return elem <= 1 and rel <= REL_L2[name], d.abs().max().item(), rel, elem
+
+
+def causal_seen(q, k, edge: int = 0):
+    """(Sq, Sk) pairs a top-left causal mask admits, ``edge`` keys late
+    (an edge of Sk admits every pair)."""
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    return kp <= qp + edge
+
+
+def tile_dropped(seen):
+    """``seen`` without keys 64..127, the second 64-row K/V tile."""
+    kp = torch.arange(seen.shape[1], device=seen.device)[None, :]
+    return seen & ((kp < 64) | (kp >= 128))
+
+
+def plain_bwd(q, k, v, o, lse, do, seen, use_delta=True, group_sum=True):
+    """The plain backward written out again, with the knobs the planted
+    faults turn: ``seen`` (Sq, Sk) marks the pairs whose probabilities are
+    recomputed, ``use_delta`` whether dS subtracts rowsum(o * dO),
+    ``group_sum`` whether dK and dV sum all G query heads of a K/V head
+    (else only the first). Only the planted faults use it."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qf, dof = q.float(), do.float()
+    kr = k.float().repeat_interleave(G, dim=2)
+    vr = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kr)
+    p = torch.exp(s.masked_fill(~seen, float("-inf")) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    if use_delta:
+        dp = dp - (o.float() * dof).sum(-1).transpose(1, 2)[..., None]
+    ds = p * dp * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).view(B, Sk, KV, G, hd)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).view(B, Sk, KV, G, hd)
+    if group_sum:
+        dk, dv = dk.sum(3), dv.sum(3)
+    else:
+        dk, dv = dk[:, :, :, 0], dv[:, :, :, 0]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_faults(q, k, v, o, lse, do, causal):
+    """The plain backward with planted faults: {fault: (dq, dk, dv)}."""
+    G = q.shape[2] // k.shape[2]
+    right = causal_seen(q, k, edge=0 if causal else k.shape[1])
+    faults = {"delta left out": dict(seen=right, use_delta=False)}
+    masks = {"64-row K/V tile dropped": tile_dropped(right)}
+    if causal:
+        masks["causal edge off by one"] = causal_seen(q, k, edge=1)
+    for fault, seen in masks.items():
+        # a mask that changes no seen pair (no query sees a second K/V
+        # tile) is no fault at this shape
+        if not torch.equal(seen, right):
+            faults[fault] = dict(seen=seen)
+    if G > 1:
+        faults["first head of each group only"] = dict(seen=right,
+                                                       group_sum=False)
+    return {f: plain_bwd(q, k, v, o, lse, do, **kw)
+            for f, kw in faults.items()}
+
+
+def check_bwd(device):
+    """B2a and B2b against the plain backward in every case; the same
+    limits must reject each planted fault, and a second run on the same
+    inputs must give the same bits. Returns the max abs errors of dq and
+    of dk/dv at the training case."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    errs = {}
+    for label, B, H, KV, Sq, Sk, hd, dt, causal in bwd_cases():
+        q, k, v, do = rand_like_cases(
+            gen, [(B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd),
+                  (B, Sq, H, hd)], dt, device)
+        o, lse = FO.flash_attention(q, k, v, causal=causal)
+        got = FO.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = FO.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        ref = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        name = str(dt).replace("torch.", "")
+        shape = (f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} {name} "
+                 f"causal={causal}")
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        readings = [grad_agreement(g, r) for g, r in zip(got, ref)]
+        print(f"flash_attention_bwd {label} {shape}: " + "; ".join(
+            f"{n} max|d|={e:.3g} row rel L2={rl:.3g} elem={el:.3g}"
+            for n, (_, e, rl, el) in zip(("dq", "dk", "dv"), readings))
+            + f"; {'ok' if all(r[0] for r in readings) else 'MISMATCH'}"
+            + f"; second run {'bitwise equal' if bitwise else 'DIFFERS'}")
+        check(all(r[0] for r in readings),
+              f"flash_attention_bwd disagrees with its plain version "
+              f"({label}, {shape})")
+        check(bitwise, f"flash_attention_bwd does not repeat bit for bit "
+                       f"({label}, {shape})")
+        for fault, planted in bwd_faults(q, k, v, o, lse, do,
+                                         causal).items():
+            fr = [grad_agreement(g, r) for g, r in zip(planted, ref)]
+            caught = not all(x[0] for x in fr)
+            print(f"  planted fault '{fault}': row rel L2 dq/dk/dv = "
+                  + "/".join(f"{x[2]:.3g}" for x in fr) + ", elem = "
+                  + "/".join(f"{x[3]:.3g}" for x in fr)
+                  + f" {'rejected' if caught else 'NOT REJECTED'}")
+            check(caught, f"the flash_attention_bwd limits pass a planted "
+                          f"fault ({fault}, {label})")
+        if label == "gpt2-124m training":
+            errs["flash_bwd_dq"] = readings[0][1]
+            errs["flash_bwd_dkv"] = max(readings[1][1], readings[2][1])
+    return errs
+
+
 def check_refusals(device):
     """On the card a wrapper launches its kernel or raises: what the
     kernels do not take is refused, and nothing falls back to the plain
@@ -302,8 +506,14 @@ def check_refusals(device):
     before = {f.__name__: f.launches for f in COUNTED}
     q = torch.randn(1, 8, 4, 8, device=device)
     k16 = torch.randn(1, 8, 4, 16)
+    h16 = torch.randn(1, 8, 4, 16, device=device).half()
+    lse = torch.zeros(1, 4, 8, device=device)
     for what, call, exc in (
             ("head dim 8", lambda: FO.flash_attention(q, q, q), ValueError),
+            ("backward, head dim 8", lambda: FO.flash_attention_bwd(
+                q, q, q, q, lse, q), ValueError),
+            ("backward, float16", lambda: FO.flash_attention_bwd(
+                h16, h16, h16, h16, lse, h16), TypeError),
             ("float16", lambda: DO.decode_attention(
                 q[:, 0].half(), q.half(), q.half(), 3), TypeError),
             ("k on the CPU", lambda: FO.flash_attention(
@@ -320,9 +530,9 @@ def check_refusals(device):
 
 def time_kernels(device, errs, launches):
     """The kernels' line: each kernel, its plain version and the library
-    call timed at the serving shapes, with the card's bound. ``launches``
-    holds each serving path's counts; ``launches`` in the line is their
-    sum."""
+    call timed at the main paths' shapes (B1 and B3 serving, B2a and B2b
+    training), with the card's bound. ``launches`` holds each path's
+    counts; ``launches`` in the line is their sum."""
     gen = torch.Generator(device=device).manual_seed(1)
     bf = torch.bfloat16
     out = []
@@ -385,6 +595,53 @@ def time_kernels(device, errs, launches):
                 "library_ms": lib,
                 "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
                          f"lens={lens}"})
+
+    # B2a and B2b at a gpt2-124m train step's attention: (8, 1024), 12 heads
+    B, H, KV, S, hd = TRAIN_B, 12, 12, TRAIN_S, 64
+    scale = hd ** -0.5
+    sets, full, lib_sets = [], [], []
+    for _ in range(4):
+        q, k, v, do = rand_like_cases(gen, [(B, S, H, hd), (B, S, KV, hd),
+                                            (B, S, KV, hd), (B, S, H, hd)],
+                                      bf, device)
+        o, lse = FO.flash_attention(q, k, v)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        sets.append((q, k, v, do, lse, delta))
+        full.append((q, k, v, o, lse, do))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_sets.append((ot, qt, kt, vt, do.transpose(1, 2)))
+    ms_dq = time_ms(lambda *a: FO.flash_bwd_dq(*a, True, scale), sets)
+    ms_dkv = time_ms(lambda *a: FO.flash_bwd_dkv(*a, True, scale), sets)
+    plain = time_ms(lambda *a: FR.flash_attention_bwd_ref(*a), full, iters=5)
+    lib = time_ms(lambda ot, qt, kt, vt, dot: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), lib_sets)
+    pairs = B * H * S * (S + 1) / 2                    # causal (q, k) pairs
+    shape = f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"
+    note = ("plain_ms and library_ms are each one timing of a call that "
+            "computes dq, dk and dv together (flash_attention_bwd_ref; "
+            "torch.autograd.grad of scaled_dot_product_attention); the "
+            "same number stands in the B2a and the B2b entry")
+    for name, ms, line, nbytes, ops in (
+            ("flash_bwd_dq", ms_dq, 138,
+             2 * (3 * B * S * H * hd + 2 * B * S * KV * hd) + 8 * B * H * S,
+             3 * 2 * hd * pairs),           # S, dP and dS.K
+            ("flash_bwd_dkv", ms_dkv, 181,
+             2 * (2 * B * S * H * hd + 4 * B * S * KV * hd) + 8 * B * H * S,
+             4 * 2 * hd * pairs)):          # S, dP, P^T.dO and dS^T.Q
+        b_ms, b_by = bound(nbytes, ops)
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_bwd.cu",
+                    "replaces": f"src/repro/kernels/flash_attention/"
+                                f"kernel.py:{line}",
+                    "launches": sum(n[name] for n in launches.values()),
+                    "launches_by_path": {p: n[name]
+                                         for p, n in launches.items()},
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "note": note, "shape": shape})
     return out
 
 
@@ -393,22 +650,45 @@ def time_kernels(device, errs, launches):
 # ---------------------------------------------------------------------------
 
 
-# every wrapper and plain version, each with its launch counter
-COUNTED = (FO.flash_attention, DO.decode_attention,
-           FR.flash_attention_ref, DR.decode_attention_ref)
+# every kernel launcher and plain version, each with its launch counter
+COUNTED = (FO.flash_attention, FO.flash_bwd_dq, FO.flash_bwd_dkv,
+           DO.decode_attention, FR.flash_attention_ref,
+           FR.flash_attention_bwd_ref, DR.decode_attention_ref)
+KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
+           "decode_attention")
+PLAIN = ("flash_attention_ref", "flash_attention_bwd_ref",
+         "decode_attention_ref")
+
+
+def zero_counts() -> None:
+    for f in COUNTED:
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {f.__name__: f.launches for f in COUNTED}
+
+
+def plain_train(q, k, v, causal=True, scale=None):
+    """flash_attention_train with the plain forward and backward."""
+    return FO.FlashAttention.apply(q, k, v, causal, scale,
+                                   FR.flash_attention_ref,
+                                   FR.flash_attention_bwd_ref)
 
 
 @contextmanager
-def plain_attention():
-    """The attention sublayer with the two kernel wrappers swapped for
-    their plain versions: the yardstick of the full-width comparison."""
-    saved = A.flash_attention, A.decode_attention
-    A.flash_attention, A.decode_attention = \
-        FR.flash_attention_ref, DR.decode_attention_ref
+def plain_attention(train_route=plain_train):
+    """The attention sublayer with the kernel wrappers swapped for their
+    plain versions (forward, backward and decode): the yardstick of the
+    full-width comparisons. ``train_route`` replaces the training and
+    prefill attention (the planted faults pass their own)."""
+    saved = A.flash_attention_train, A.decode_attention
+    A.flash_attention_train, A.decode_attention = \
+        train_route, DR.decode_attention_ref
     try:
         yield
     finally:
-        A.flash_attention, A.decode_attention = saved
+        A.flash_attention_train, A.decode_attention = saved
 
 
 def teacher_forced(engine, prompts, feed):
@@ -454,20 +734,21 @@ def serve(device, card):
     for path, run in paths.items():
         # each path's counts: set to 0 just before it, read just after
         torch.cuda.synchronize()
-        for f in COUNTED:
-            f.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         out[path] = run()
         torch.cuda.synchronize()
         seconds[path] = time.perf_counter() - t0
-        launches[path] = {f.__name__: f.launches for f in COUNTED}
+        launches[path] = read_counts()
         print(f"{path} launches: {launches[path]}")
         check(launches[path]["flash_attention"] > 0,
               f"{path}: flash_attention never launched")
         check(launches[path]["decode_attention"] > 0,
               f"{path}: decode_attention never launched")
-        check(launches[path]["flash_attention_ref"] == 0
-              and launches[path]["decode_attention_ref"] == 0,
+        check(launches[path]["flash_bwd_dq"] == 0
+              and launches[path]["flash_bwd_dkv"] == 0,
+              f"{path}: a backward kernel ran while serving")
+        check(all(launches[path][n] == 0 for n in PLAIN),
               f"{path}: a plain version ran")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     uniform, ragged = out["generate uniform"], out["generate ragged"]
@@ -540,40 +821,7 @@ def serve(device, card):
 
 def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
     """Device time by kernel over one prefill and over 4 decode steps, from
-    torch.profiler; the idle share is taken against the unprofiled step
-    times. None where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(fn, wall_ms: float, n: int):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.key_averages():   # device events: kernels, copies
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per[e.key] = per.get(e.key, 0.0) \
-                    + e.self_device_time_total / 1e3 / n
-        busy = sum(per.values())
-        if busy == 0:
-            return None
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-        groups = {"attention kernels": 0.0, "matmul": 0.0, "other": 0.0}
-        for name, t in per.items():
-            low = name.lower()
-            if "flash_fwd" in low or "decode_partial" in low \
-                    or "decode_combine" in low:
-                groups["attention kernels"] += t
-            elif "nvjet" in low or "gemm" in low or "cutlass" in low:
-                groups["matmul"] += t
-            else:
-                groups["other"] += t
-        return {"device_busy_ms": busy, "wall_ms": wall_ms,
-                "idle_share": max(0.0, 1 - busy / wall_ms),
-                "groups_ms": groups,
-                "top_kernels_ms": [[k[:90], t] for k, t in top]}
-
+    torch.profiler (see :func:`device_window`)."""
     logits, cache = engine._prefill(prompts)
     tok = logits[:, -1].argmax(-1, keepdim=True)
 
@@ -583,8 +831,9 @@ def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
             lg, cache = engine._decode(cache, tok)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    return {"prefill": window(lambda: engine._prefill(prompts), prefill_ms, 1),
-            "decode_step": window(decode4, decode_ms, 4)}
+    return {"prefill": device_window(lambda: engine._prefill(prompts),
+                                     prefill_ms),
+            "decode_step": device_window(decode4, decode_ms, 4)}
 
 
 def small_model_matches_cpu(device) -> None:
@@ -603,6 +852,286 @@ def small_model_matches_cpu(device) -> None:
     print("smoke model f32: card tokens equal CPU tokens")
 
 
+def small_train_matches_cpu(device) -> None:
+    """Smoke width in float32: 3 train steps on the card (kernels) against
+    3 on the CPU (plain versions), from the same params and batch."""
+    cfg = gpt2_124m.smoke_config(dtype=torch.float32)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    tokens = np.random.RandomState(2).randint(0, cfg.vocab, (2, 33))
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    out = {}
+    for dev in ("cpu", device):
+        model = build_model(cfg, device=dev)
+        p = unflatten((path, t.to(model.device)) for path, t in
+                      flatten(params))
+        state = adamw_init(p, opt)
+        step = make_train_step(model, opt)
+        zero_counts()
+        losses = []
+        for _ in range(3):
+            p, state, metrics = step(p, state, {"tokens": tokens})
+            losses.append(float(metrics["loss"]))
+        out[str(model.device.type)] = (losses, p, read_counts())
+    (l_cpu, p_cpu, _), (l_gpu, p_gpu, n_gpu) = out["cpu"], out["cuda"]
+    L = cfg.n_layers
+    check(n_gpu["flash_attention"] == 3 * 2 * L
+          and n_gpu["flash_bwd_dq"] == n_gpu["flash_bwd_dkv"] == 3 * L
+          and all(n_gpu[n] == 0 for n in PLAIN),
+          f"smoke model train steps on the card: launches {n_gpu}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    p_rel = max(((a.cpu() - b).norm() / b.norm()).item() for (_, a), (_, b)
+                in zip(flatten(p_gpu), flatten(p_cpu)))
+    print(f"smoke model f32, 3 train steps: losses card {l_gpu} cpu {l_cpu}; "
+          f"loss rel err {loss_rel:.3g}, params rel L2 (worst leaf) "
+          f"{p_rel:.3g} (limit {SMOKE_TRAIN_REL}); card launches {n_gpu}")
+    check(loss_rel <= SMOKE_TRAIN_REL and p_rel <= SMOKE_TRAIN_REL,
+          "smoke model: card and CPU train steps differ")
+
+
+def model_faults(n_layers: int):
+    """Training routes of the plain attention with one planted fault each,
+    for the full-width comparison: {fault: route}. Each route serves one
+    value_and_grad."""
+    def route(fwd, bwd):
+        return lambda q, k, v, causal=True, scale=None: \
+            FO.FlashAttention.apply(q, k, v, causal, scale, fwd, bwd)
+
+    def bwd_fault(mask=causal_seen, **kw):
+        """The plain backward over the pairs ``mask(q, k)``, with ``kw``."""
+        def bwd(q, k, v, o, lse, do, causal=True, scale=None):
+            return plain_bwd(q, k, v, o, lse, do, seen=mask(q, k), **kw)
+        return bwd
+
+    def fwd_edge(q, k, v, causal=True, scale=None):
+        return plain_masked(q, k, v, causal_seen(q, k, edge=1))
+
+    def first_layer_only(bad):
+        """The sound plain backward, except in the first layer (the last
+        of the n_layers backward calls of one value_and_grad)."""
+        calls = [0]
+
+        def bwd(*a, **kw):
+            calls[0] += 1
+            return (bad if calls[0] == n_layers else
+                    FR.flash_attention_bwd_ref)(*a, **kw)
+        return bwd
+
+    def first_head_tile_dropped(q, k):
+        seen = causal_seen(q, k).expand(q.shape[2], -1, -1).clone()
+        seen[0] = tile_dropped(seen[0])
+        return seen
+
+    return {
+        "backward: delta left out": route(
+            FR.flash_attention_ref, bwd_fault(use_delta=False)),
+        "backward: 64-row K/V tile dropped": route(
+            FR.flash_attention_ref,
+            bwd_fault(lambda q, k: tile_dropped(causal_seen(q, k)))),
+        "forward: causal edge off by one": route(
+            fwd_edge, FR.flash_attention_bwd_ref),
+        "backward, first layer only: delta left out": route(
+            FR.flash_attention_ref,
+            first_layer_only(bwd_fault(use_delta=False))),
+        "backward, first layer and first head only: 64-row K/V tile "
+        "dropped": route(
+            FR.flash_attention_ref,
+            first_layer_only(bwd_fault(first_head_tile_dropped)))}
+
+
+def grads_vector(grads) -> torch.Tensor:
+    return torch.cat([g.float().flatten() for _, g in flatten(grads)])
+
+
+def attn_slices(grads) -> dict:
+    """{leaf: float32 gradient} of the attention weights, stacked over the
+    layers."""
+    return {path: g.float() for path, g in flatten(grads)
+            if path in ATTN_LEAVES}
+
+
+def worst_attn_slice(got: dict, ref: dict):
+    """(largest relative L2 error of one layer's slice of an attention
+    weight's gradient, 'leaf layer i')."""
+    worst = (0.0, "")
+    for path, r in ref.items():
+        d = (got[path] - r).flatten(1).norm(dim=1) \
+            / r.flatten(1).norm(dim=1).clamp_min(1e-30)
+        i = int(d.argmax())
+        worst = max(worst, (d[i].item(), f"{path.split('/')[-1]} layer {i}"))
+    return worst
+
+
+def train(device, card):
+    """gpt2-124m at full width: kernel path against plain path on one
+    batch, then TRAIN_STEPS steps of make_train_step, each step's launch
+    counts read on their own."""
+    cfg = gpt2_124m.config()
+    check(cfg.remat == "full" and cfg.dtype == torch.bfloat16
+          and cfg.param_dtype == torch.float32, f"config {cfg}")
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1),
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1), device=device)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    print(f"setup: gpt2-124m ({cfg.param_count() / 1e6:.1f} M params, "
+          f"remat {cfg.remat}) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # kernel path against plain path, the same params and batch
+    zero_counts()
+    loss_k, grads_k = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    n_k = read_counts()
+    gk, ak = grads_vector(grads_k), attn_slices(grads_k)
+    del grads_k
+    with plain_attention():
+        zero_counts()
+        loss_p, grads_p = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        n_p = read_counts()
+    gp, ap = grads_vector(grads_p), attn_slices(grads_p)
+    del grads_p
+    check(all(n_p[n] == 0 for n in KERNELS) and n_p["flash_attention_ref"]
+          > 0 and n_p["flash_attention_bwd_ref"] > 0,
+          f"the plain run launched a kernel or skipped a plain version: "
+          f"{n_p}")
+    check(bool(torch.isfinite(gk).all()) and bool(torch.isfinite(loss_k)),
+          "non-finite loss or gradients on the kernel path")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_rel = ((gk - gp).norm() / gp.norm()).item()
+    slice_rel, slice_at = worst_attn_slice(ak, ap)
+    print(f"full width kernel vs plain (loss and gradients, bf16 "
+          f"activations, f32 params): loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f}, rel {loss_rel:.3g} (limit {TRAIN_LOSS_REL});"
+          f" gradients rel L2 {grad_rel:.3g} (limit {TRAIN_GRAD_REL_L2}); "
+          f"worst attention-weight slice rel L2 {slice_rel:.3g} at "
+          f"{slice_at} (limit {TRAIN_ATTN_SLICE_REL_L2}); "
+          f"launches kernel path {n_k}, plain path {n_p}")
+    check(loss_rel <= TRAIN_LOSS_REL, "kernel and plain losses differ")
+    check(grad_rel <= TRAIN_GRAD_REL_L2, "kernel and plain gradients differ")
+    check(slice_rel <= TRAIN_ATTN_SLICE_REL_L2,
+          f"kernel and plain attention-weight gradients differ ({slice_at})")
+    del gk, ak
+    for fault, route in model_faults(cfg.n_layers).items():
+        with plain_attention(route):
+            loss_f, grads_f = value_and_grad(model, params, batch)
+        f_loss = abs(loss_f.item() - loss_p.item()) / abs(loss_p.item())
+        f_grad = ((grads_vector(grads_f) - gp).norm() / gp.norm()).item()
+        f_slice, f_at = worst_attn_slice(attn_slices(grads_f), ap)
+        del grads_f
+        caught = [f_loss > TRAIN_LOSS_REL, f_grad > TRAIN_GRAD_REL_L2,
+                  f_slice > TRAIN_ATTN_SLICE_REL_L2]
+        print(f"  planted fault '{fault}' at full width: loss rel "
+              f"{f_loss:.3g}, gradients rel L2 {f_grad:.3g}, worst "
+              f"attention-weight slice rel L2 {f_slice:.3g} at {f_at}; "
+              f"rejected by the loss/gradients/slice limits: {caught}")
+        check(any(caught), f"the full-width training limits pass a "
+                           f"planted fault ({fault})")
+    del gp, ap
+
+    opt_cfg = AdamWConfig(lr=6e-4, warmup_steps=2, total_steps=10)
+    step = make_train_step(model, opt_cfg)
+    state = adamw_init(params, opt_cfg)
+    L = cfg.n_layers
+    want = {n: 0 for n in PLAIN + ("decode_attention",)}
+    want.update(flash_attention=2 * L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    losses, step_ms, per_step = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        zero_counts()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_counts())
+        losses.append(metrics["loss"].item())
+        print(f"train step {i + 1}: loss {losses[-1]:.5f} grad_norm "
+              f"{metrics['grad_norm'].item():.4f} lr "
+              f"{metrics['lr'].item():.3g} {step_ms[-1]:.1f} ms launches "
+              f"{per_step[-1]}")
+        check(per_step[-1] == want, f"train step {i + 1}: launches "
+              f"{per_step[-1]}, want exactly {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    steady = float(np.mean(step_ms[1:]))
+    profile = device_window(lambda: step(params, state, batch), steady,
+                            shapes=True)
+    return per_step, {"training": {
+        "model": "gpt2-124m (12 layers, d=768, 12 heads, vocab 50257, f32 "
+                 "params, bf16 activations, remat full, random weights)",
+        "card": card, "batch": f"B={TRAIN_B} S={TRAIN_S}",
+        "optimizer": "AdamW lr=6e-4 warmup 2 total 10",
+        "losses": losses, "step_ms": step_ms,
+        "step_ms_mean_after_first": steady,
+        "tokens_per_s": TRAIN_B * TRAIN_S / (steady / 1e3),
+        "peak_memory_gb": peak_gb,
+        "launches_per_step": per_step[-1],
+        "loss_rel_kernel_vs_plain": loss_rel,
+        "grad_rel_l2_kernel_vs_plain": grad_rel,
+        "attn_slice_rel_l2_kernel_vs_plain": slice_rel,
+        "profile": profile}}
+
+
+def matmul_shapes(prof, n: int):
+    """The matmul kernels' device ms per step by (kernel, launching
+    operator, its input shapes and dtypes), the largest 8."""
+    per = {}
+    for e in prof.events():
+        for kern in e.kernels:
+            low = kern.name.lower()
+            if "nvjet" in low or "gemm" in low or "cutlass" in low:
+                key = (kern.name[:70], e.name, str(e.input_shapes),
+                       str(getattr(e, "input_dtypes", "")))
+                per[key] = per.get(key, 0.0) + kern.duration / 1e3 / n
+    return [list(k) + [t] for k, t in
+            sorted(per.items(), key=lambda kv: -kv[1])[:8]]
+
+
+def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
+    """Device time by kernel over ``fn()`` (``n`` steps), from
+    torch.profiler; the idle share is taken against the unprofiled wall
+    time of a step. None where the profiler saw no device time. With
+    ``shapes``, also the matmuls' operand shapes (:func:`matmul_shapes`)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():   # device events: kernels, copies
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.key] = per.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3 / n
+    busy = sum(per.values())
+    if busy == 0:
+        return None
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    groups = {"attention kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, t in per.items():
+        low = name.lower()
+        if any(w in low for w in ("flash_fwd", "dq_kernel", "dkv_kernel",
+                                  "decode_partial", "decode_combine")):
+            groups["attention kernels"] += t
+        elif "nvjet" in low or "gemm" in low or "cutlass" in low:
+            groups["matmul"] += t
+        else:
+            groups["other"] += t
+    out = {"device_busy_ms": busy, "wall_ms": wall_ms,
+           "idle_share": max(0.0, 1 - busy / wall_ms),
+           "groups_ms": groups,
+           "top_kernels_ms": [[k[:90], t] for k, t in top]}
+    if shapes:
+        out["matmul_shapes_ms"] = matmul_shapes(prof, n)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke run needs an NVIDIA card")
@@ -619,15 +1148,23 @@ def main() -> None:
     print(f"setup: kernels built in {time.perf_counter() - t0:.1f} s")
 
     errs = check_kernels(device)
+    errs.update(check_bwd(device))
     check_refusals(device)
     small_model_matches_cpu(device)
+    small_train_matches_cpu(device)
     launches, serving = serve(device, card)
+    torch.cuda.empty_cache()
+    per_step, training = train(device, card)
+    launches[f"train ({TRAIN_STEPS} steps)"] = {
+        n: sum(c[n] for c in per_step) for n in per_step[0]}
+    torch.cuda.empty_cache()
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
-              f"sdpa {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "
+              f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "
               f"{k['bound_by']}) on {card}")
     print(json.dumps(serving))
+    print(json.dumps(training))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the configurations it can serve.
+"""Architecture registry of the port: the configurations it can serve and
+train.
 
 The port's own copies of the ``repro.configs`` modules it supports. An arch
 enters this registry when its family and kernels are ported.
@@ -11,6 +12,8 @@ from repro_torch.models.common import ModelConfig
 
 ARCH_MODULES = {
     "yi-6b": "yi_6b",
+    # the paper's own evaluation model
+    "gpt2-124m": "gpt2_124m",
 }
 
 

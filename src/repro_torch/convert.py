@@ -1,4 +1,5 @@
-"""Convert params between the reference's numpy trees and the port.
+"""Convert params and AdamW state between the reference's numpy trees and
+the port.
 
 A reference param tree (``jax.tree_util.tree_map(np.asarray, params)``) is
 a nested dict of numpy arrays. Its leaves, in ``jax.tree_util`` order, are
@@ -74,3 +75,23 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return unflatten((path, conv(t)) for path, t in flatten(params))
+
+
+def opt_state_from_jax(state: Dict[str, Any], cfg: ModelConfig,
+                       device="cuda") -> Dict[str, Any]:
+    """The port's AdamW state from a reference state of numpy arrays
+    (``mu`` and ``nu`` trees with the params' keys, and ``step``); the
+    moments keep their dtype (bfloat16 ones included)."""
+    device = resolve_device(device)
+    return {"mu": params_from_jax(state["mu"], cfg, device),
+            "nu": params_from_jax(state["nu"], cfg, device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference-shaped AdamW state of numpy arrays (bfloat16 moments come
+    back as float32, which holds them exactly)."""
+    return {"mu": params_to_numpy(state["mu"]),
+            "nu": params_to_numpy(state["nu"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> source, relative to this directory
 SOURCES = {
     "flash_fwd": "flash_attention/csrc/flash_fwd.cu",
+    "flash_bwd": "flash_attention/csrc/flash_bwd.cu",
     "decode": "decode_attention/csrc/decode.cu",
 }
 

@@ -1,4 +1,6 @@
-"""Flash-attention forward: wrapper, launch counter and device dispatch."""
+"""Flash attention: the forward and backward wrappers, their launch
+counters and device dispatch, and the autograd Function that ties them
+together for training."""
 
 from __future__ import annotations
 
@@ -7,7 +9,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -15,7 +17,17 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _I, _P]
 
 
-_LIB = None          # the loaded library, its signature set once
+_BWD_ARGTYPES = {
+    "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P, ctypes.c_float, _I, _P],
+    "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _P, ctypes.c_float, _I, _P],
+}
+_Strides = ctypes.c_longlong * 21
+
+
+_LIB = None          # the loaded libraries, their signatures set once
+_BWD_LIB = None
 
 
 def _lib():
@@ -26,6 +38,18 @@ def _lib():
         lib.flash_fwd.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _build.load("flash_bwd")
+        for name, argtypes in _BWD_ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check(q, k, v) -> None:
@@ -88,3 +112,136 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
 
 
 flash_attention.launches = 0
+
+
+def _kernel_layout(t):
+    """``t`` as the bfloat16/float32 kernels read it: the head dim
+    contiguous and, in bfloat16, 16-byte aligned with strides that are
+    multiples of 8. Anything else (an expanded gradient, say) is copied
+    into a contiguous tensor."""
+    ok = t.stride(-1) == 1 and all(st > 0 for st in t.stride()[:3])
+    if ok and t.dtype == torch.bfloat16:
+        ok = t.data_ptr() % 16 == 0 \
+            and all(st % 8 == 0 for st in t.stride()[:3])
+    return t if ok else t.contiguous()
+
+
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not match q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    B, Sq, H, _ = q.shape
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 (B, H, Sq) = "
+                         f"{(B, H, Sq)} tensor on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
+def _strides(q, k, v, do, dq, dk, dv):
+    """The (batch, sequence, head) strides of the seven tensors, as the
+    backward kernels' C entry points take them."""
+    return _Strides(*(st for t in (q, k, v, do, dq, dk, dv)
+                      for st in t.stride()[:3]))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """B2a on checked CUDA tensors: dQ (B, Sq, H, hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    with torch.cuda.device(q.device):
+        err = _bwd_lib().flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _build.dtype_code(q), B, H, KV, Sq, Sk, hd,
+            _strides(q, k, v, do, dq, k, v), scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_cuda_status(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """B2b on checked CUDA tensors: (dK, dV), each (B, Sk, KV, hd) in k's
+    dtype and summed over the query heads of its K/V head."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    with torch.cuda.device(q.device):
+        err = _bwd_lib().flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _build.dtype_code(q), B, H, KV, Sq, Sk, hd,
+            _strides(q, k, v, do, q, dk, dv), scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_cuda_status(err, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        scale=None):
+    """Attention backward from the forward's residuals: (dq, dk, dv).
+
+    q, o, do (B, Sq, H, hd); k, v (B, Sk, KV, hd); lse (B, H, Sq) float32,
+    as :func:`flash_attention` returns it. A CPU tensor goes to the plain
+    version; a CUDA tensor to the two kernels, dQ (B2a) then dK/dV (B2b),
+    which read every tensor through its strides. ``do`` may come with any
+    strides (autograd hands over what it has); one the kernels cannot read
+    is copied first. delta = rowsum(o * do) is formed here in float32, as
+    the reference forms it outside its Pallas calls."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    do = _kernel_layout(do)
+    _check_bwd(q, k, v, o, lse, do)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is ``fwd`` and whose backward is ``bwd``,
+    from the residuals (q, k, v, o, lse): no probability matrix is kept
+    between the two. :func:`flash_attention_train` passes the wrappers, so
+    the device picks kernels or plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, fwd, bwd):
+        o, lse = fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.bwd = causal, scale, bwd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                             scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q, k, v, causal: bool = True, scale=None):
+    """Differentiable attention: o (B, Sq, H, hd) in q's dtype, with the
+    forward kernel (B1) one way and the backward kernels (B2a, B2b) the
+    other on a CUDA tensor, the plain versions on a CPU tensor. Where no
+    gradient is wanted (serving's prefill) it is the forward alone."""
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention(q, k, v, causal=causal, scale=scale)[0]
+    return FlashAttention.apply(q, k, v, causal, scale, flash_attention,
+                                flash_attention_bwd)

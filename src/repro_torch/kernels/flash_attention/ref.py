@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the flash-attention forward kernel."""
+"""Plain PyTorch versions of the flash-attention forward and backward
+kernels."""
 
 from __future__ import annotations
 
@@ -29,3 +30,43 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
 
 
 flash_attention_ref.launches = 0
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                            scale=None):
+    """Full-matrix attention backward in float32, from the forward's
+    residuals.
+
+    Layouts as :func:`flash_attention_ref`: q, o, do (B, Sq, H, hd); k, v
+    (B, Sk, KV, hd); lse (B, H, Sq) float32. P is recomputed from the given
+    LSE as exp(q . k * scale - lse) under the same top-left causal mask,
+    delta = rowsum(o * do) in float32, dS = P * (dP - delta) * scale, and
+    dK and dV are summed over the G query heads of each K/V head. Returns
+    (dq in q's dtype, dk and dv in k's dtype), the same function as the
+    backward kernels."""
+    flash_attention_bwd_ref.launches += 1
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5 if scale is None else scale
+    qf, dof = q.float(), do.float()
+    kr = k.float().repeat_interleave(G, dim=2)
+    vr = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kr)
+    if causal:
+        kpos = torch.arange(Sk, device=q.device)
+        qpos = torch.arange(Sq, device=q.device)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    delta = (o.float() * dof).sum(-1).transpose(1, 2)         # (B, H, Sq)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.view(B, Sk, KV, G, hd).sum(3)
+    dv = dv.view(B, Sk, KV, G, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_bwd_ref.launches = 0

@@ -1,9 +1,10 @@
-"""Attention sublayer of the port: GQA with RoPE, prefill and decode.
+"""Attention sublayer of the port: GQA with RoPE, for training, prefill
+and decode.
 
-Prefill runs the flash-attention forward kernel, decode the
-decode-attention kernel; each wrapper picks kernel or plain version by the
-tensor's device. The training branch (with its flash backward) is not
-ported yet.
+Training and prefill run differentiable flash attention (the forward
+kernel, and the two backward kernels when autograd asks for gradients),
+decode the decode-attention kernel; each wrapper picks kernel or plain
+version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.decode_attention.ops import decode_attention
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import flash_attention_train
 from .common import ModelConfig, init_dense, rotate
 
 
@@ -58,7 +59,8 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg: ModelConfig,
     :func:`~repro_torch.models.common.rope_cos_sin` at the tokens'
     positions, computed once per forward pass for all layers.
 
-    Prefill: x (B, S, D) -> (out, (k, v)), causal over the S positions.
+    Training and prefill: x (B, S, D) -> (out, (k, v)), causal over the S
+    positions; differentiable, with the backward kernels under autograd.
     Decode: x (B, 1, D) with ``cache`` {"k", "v": (B, S_max, KV, hd),
     "at", "attend": from :func:`decode_rows`} -> (out, (k_cache,
     v_cache)); the K/V rows are written in place.
@@ -67,7 +69,7 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg: ModelConfig,
     k = rotate(_heads(x, p["wk"]), *rope)
     v = _heads(x, p["wv"])
     if cache is None:
-        out, _ = flash_attention(q, k, v, causal=True)
+        out = flash_attention_train(q, k, v, causal=True)
         new_kv = (k, v)
     else:
         k_cache, v_cache = cache["k"], cache["v"]

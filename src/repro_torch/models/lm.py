@@ -1,9 +1,11 @@
-"""Decoder LM of the port: the dense family, for serving.
+"""Decoder LM of the port: the dense family, for training and serving.
 
 Parameters are a nested dict of tensors with the reference's keys, the
 blocks stacked on a leading layer axis; the layer loop is plain Python over
-that axis. ``prefill`` builds the KV cache, ``decode_step`` appends one
-token per sequence to it in place.
+that axis. ``forward`` and ``loss`` are differentiable with respect to the
+params (the training path, with ``cfg.remat`` deciding what each layer
+keeps for the backward); ``prefill`` builds the KV cache, ``decode_step``
+appends one token per sequence to it in place.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import attention as A
@@ -68,6 +71,19 @@ def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in blocks.items()}
 
 
+def _layers(blocks: Dict[str, Any], n: int):
+    """The stacked blocks as ``n`` per-layer dicts of views, made by one
+    ``unbind`` per leaf, whose backward stacks the layers' gradients in
+    one operation."""
+    per = [dict() for _ in range(n)]
+    for key, leaf in blocks.items():
+        parts = _layers(leaf, n) if isinstance(leaf, dict) \
+            else leaf.unbind(0)
+        for i in range(n):
+            per[i][key] = parts[i]
+    return per
+
+
 class LM:
     """Dense decoder LM (GQA attention, gated MLP, RMSNorm, RoPE)."""
 
@@ -114,6 +130,9 @@ class LM:
         x = x + BL.mlp(rms_norm(x, blk["ln2"], cfg.norm_eps), blk["mlp"], cfg)
         return x, kv
 
+    def _train_block(self, x, blk, rope):
+        return self._dense_block(x, blk, rope)[0]
+
     def _embed(self, params, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device)
         return F.embedding(tokens.long(), params["embed"]).to(self.cfg.dtype)
@@ -123,6 +142,44 @@ class LM:
         if head is None:
             head = params["embed"].T
         return x @ head.to(x.dtype)
+
+    def forward(self, params, tokens) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``.
+
+        Differentiable with respect to ``params``, which stay in
+        ``cfg.param_dtype``: each matmul weight is cast to ``cfg.dtype`` where
+        it is used, as in the reference, so the gradients reach the masters.
+        ``cfg.remat == "full"`` keeps only each layer's input and runs the
+        layer again in the backward (``torch.utils.checkpoint``), as the
+        reference's ``jax.checkpoint`` does; ``"none"`` keeps everything."""
+        cfg = self.cfg
+        if cfg.remat not in ("full", "none"):
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} is not ported yet (it comes with the "
+                f"data-parallel training slice); use 'full' or 'none'")
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device).expand(B, S)
+        rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        for blk in _layers(params["blocks"], cfg.n_layers):
+            if cfg.remat == "full":
+                x = checkpoint(self._train_block, x, blk, rope,
+                               use_reentrant=False)
+            else:
+                x = self._train_block(x, blk, rope)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1):
+        the logits of tokens[:, :-1] in float32, logsumexp minus the logit
+        of each target tokens[:, 1:]. A scalar float32 tensor."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        logits = self.forward(params, inputs).float()
+        picked = logits.gather(-1, targets[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - picked).mean()
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 last_pos=None):

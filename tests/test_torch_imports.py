@@ -1,6 +1,6 @@
-"""The port stands alone: importing it and serving on the CPU loads
-neither ``jax`` nor any module of ``repro``; and it never moves to the CPU
-on its own."""
+"""The port stands alone: importing it, serving and taking a train step on
+the CPU loads neither ``jax`` nor any module of ``repro``; and it never
+moves to the CPU on its own."""
 
 import os
 import subprocess
@@ -18,8 +18,10 @@ import sys
 import numpy as np
 import torch
 import repro_torch
-from repro_torch.configs import yi_6b
+from repro_torch.configs import gpt2_124m, yi_6b
+from repro_torch.launch import make_train_step
 from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.serving import RequestScheduler, ServeEngine, TPServeEngine
 
 cfg = yi_6b.smoke_config(n_layers=1)
@@ -33,6 +35,14 @@ sched = RequestScheduler(TPServeEngine(model, params, max_len=16,
                          n_slots=2, prefill_len=4)
 sched.submit(np.array([1, 2, 3]), 4)
 sched.run()
+tcfg = gpt2_124m.smoke_config(n_layers=1)
+tmodel = build_model(tcfg, device="cpu")
+tparams = tmodel.init(torch.Generator().manual_seed(0))
+opt = AdamWConfig(lr=1e-3)
+_, state, metrics = make_train_step(tmodel, opt)(
+    tparams, adamw_init(tparams, opt),
+    {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)})
+assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))

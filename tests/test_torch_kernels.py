@@ -2,7 +2,9 @@
 (interpret mode) and their JAX oracles, plus the wrappers' dispatch.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
-Tolerances are those of tests/test_kernels.py: f32 2e-3, bf16 5e-2.
+Tolerances are those of tests/test_kernels.py: f32 2e-3, bf16 5e-2; the
+plain backward is held tighter in f32 (1e-5 relative), since it and the
+Pallas backward do the same float32 arithmetic on the same inputs.
 """
 
 import numpy as np
@@ -10,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attention import kernel as DK  # noqa: E402
@@ -218,3 +221,143 @@ def test_decode_rows_clamp_writes_and_hand_lengths_over(ln, at, attend):
     assert got_attend.dtype == torch.int32 and got_attend.is_contiguous()
     assert got_attend.tolist() == attend
     assert DO._lens_on_device(got_attend, 3, "cpu") is got_attend
+
+
+# ---------------------------------------------------------------------------
+# flash-attention backward (B2a, B2b) and the autograd Function
+# ---------------------------------------------------------------------------
+
+# FLASH_SHAPES holds the two shapes of tests/test_kernels.py:61-80 as well
+BWD_SHAPES = FLASH_SHAPES
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": TOL["bfloat16"]}
+
+
+def _bwd_inputs(shape, dtype, seed):
+    """q, k, v, do as (jax (B, heads, S, hd), torch (B, S, heads, hd))
+    pairs with the same values."""
+    B, H, KV, Sq, Sk, hd, causal = shape
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(B, S, n, hd).astype(np.float32)
+              for S, n in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H))]
+    pairs = [_pair(a, dtype) for a in arrays]
+    return [(j.transpose(0, 2, 1, 3), t) for j, t in pairs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_plain_matches_pallas_and_autodiff(shape, dtype):
+    """flash_attention_bwd_ref against the Pallas backward (interpret mode)
+    on the same residuals, and against jax.grad of attention_ref: float32
+    to 1e-5, bfloat16 to TOL."""
+    causal = shape[-1]
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _bwd_inputs(shape, dtype, 3)
+    o_t, lse_t = TFR.flash_attention_ref(qt, kt, vt, causal=causal)
+    dq, dk, dv = TFR.flash_attention_bwd_ref(qt, kt, vt, o_t, lse_t, dot,
+                                             causal=causal)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (qt.dtype, kt.dtype, vt.dtype)
+    got = [_np(g).transpose(0, 2, 1, 3) for g in (dq, dk, dv)]
+    # the Pallas backward on the same o and lse
+    oj = jnp.asarray(_np(o_t).transpose(0, 2, 1, 3)).astype(qj.dtype)
+    lj = jnp.asarray(_np(lse_t))
+    pallas = FK.flash_bwd(qj, kj, vj, oj, lj, doj, causal=causal, bq=16,
+                          bk=16)
+    _, vjp = jax.vjp(lambda q, k, v: FR.attention_ref(q, k, v, causal=causal),
+                     qj, kj, vj)
+    autodiff = vjp(doj)
+    for name, g, p, a in zip("qkv", got, pallas, autodiff):
+        np.testing.assert_allclose(g, _np(p), **BWD_TOL[dtype],
+                                   err_msg=f"d{name} vs Pallas")
+        np.testing.assert_allclose(g, _np(a), **BWD_TOL[dtype],
+                                   err_msg=f"d{name} vs jax.grad")
+
+
+def _direct_attention(q, k, v, causal):
+    """Full-matrix attention written out, differentiated by autograd."""
+    H, KV, hd = q.shape[2], k.shape[2], q.shape[3]
+    kr, vr = (t.repeat_interleave(H // KV, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, kr)
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        s = s.masked_fill(torch.arange(Sk)[None, :] > torch.arange(Sq)[:, None],
+                          float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vr)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_attention_train_matches_autograd_on_cpu(shape):
+    """The autograd Function on float32 CPU tensors (plain forward and
+    backward) against torch autograd of a direct full-matrix attention in
+    float64 on the same values: they agree to float32 rounding (1e-5)."""
+    causal = shape[-1]
+    q, k, v, do = (t.requires_grad_() for _, t in
+                   _bwd_inputs(shape, "float32", 5))
+    do = do.detach()
+    o = FO.flash_attention_train(q, k, v, causal=causal)
+    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
+    want = _direct_attention(q64, k64, v64, causal)
+    torch.testing.assert_close(o.double(), want, rtol=1e-5, atol=1e-6)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = torch.autograd.grad(want, (q64, k64, v64), do.double())
+    for name, g, r in zip("qkv", got, ref):
+        torch.testing.assert_close(g.double(), r, rtol=1e-5, atol=1e-6,
+                                   msg=f"d{name}")
+
+
+def test_flash_attention_train_runs_the_plain_versions_on_cpu():
+    """On the CPU, one forward and one backward run the plain versions,
+    once each; the kernel launchers do not move. Under no_grad only the
+    forward runs."""
+    q = torch.randn(1, 5, 4, 16, requires_grad=True)
+    k = torch.randn(1, 5, 2, 16, requires_grad=True)
+    v = torch.randn(1, 5, 2, 16, requires_grad=True)
+    counters = (TFR.flash_attention_ref, TFR.flash_attention_bwd_ref,
+                FO.flash_attention, FO.flash_bwd_dq, FO.flash_bwd_dkv)
+    before = [f.launches for f in counters]
+    o = FO.flash_attention_train(q, k, v)
+    o.sum().backward()
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [1, 1, 0, 0, 0]
+    with torch.no_grad():
+        FO.flash_attention_train(q, k, v)
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [2, 1, 0, 0, 0]
+    o_ref, lse = TFR.flash_attention_ref(q, k, v)
+    dq, dk, dv = FO.flash_attention_bwd(q, k, v, o_ref, lse,
+                                        torch.ones_like(o_ref))
+    for g, t in zip((dq, dk, dv), (q, k, v)):
+        torch.testing.assert_close(g, t.grad, rtol=0, atol=0)
+
+
+def test_flash_bwd_input_checks():
+    """What the backward kernels do not take is refused before a launch;
+    a dO they cannot read through its strides is copied first."""
+    q, k = torch.randn(1, 4, 8, 16), torch.randn(1, 4, 2, 16)
+    lse = torch.randn(1, 8, 4)
+    FO._check_bwd(q, k, k, q, lse, q)
+    with pytest.raises(ValueError, match="does not match q"):
+        FO._check_bwd(q, k, k, q[:, :3], lse, q)
+    with pytest.raises(ValueError, match="does not match q"):
+        FO._check_bwd(q, k, k, q, lse, q.double())
+    with pytest.raises(ValueError, match="lse"):
+        FO._check_bwd(q, k, k, q, lse.transpose(1, 2).contiguous()
+                      .transpose(1, 2)[..., :4], q)
+    with pytest.raises(ValueError, match="lse"):
+        FO._check_bwd(q, k, k, q, lse.double(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        FO._check_bwd(q[..., :8], k[..., :8], k[..., :8], q[..., :8], lse,
+                      q[..., :8])
+    # an expanded gradient (stride 0) and a misaligned bfloat16 one are
+    # copied; a readable one is handed over as it is
+    expanded = torch.ones(()).expand(1, 4, 8, 16)
+    assert FO._kernel_layout(expanded).stride() == (512, 128, 16, 1)
+    odd = torch.randn(1, 4, 8, 17).bfloat16()[..., 1:]
+    fixed = FO._kernel_layout(odd)
+    assert fixed.is_contiguous() and torch.equal(fixed, odd)
+    bf = q.bfloat16()
+    assert FO._kernel_layout(bf) is bf
+
+
+def test_flash_bwd_wrapper_refuses_other_devices():
+    q = torch.empty(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        FO.flash_attention_bwd(q, q, q, q, torch.empty(1, 2, 4), q)
