@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/**/csrc``, holds each
 kernel against its plain PyTorch version on the card (the backward kernels
 also against planted faults and against a second run, bit for bit), then
-drives the port's two main paths at full width with random weights from a
-seed, and shows from the launch counters, set to 0 just before each path
+drives the port's three main paths at full width with random weights from
+a seed, and shows from the launch counters, set to 0 just before each path
 and read just after, that each went through the kernels:
 
 * serving yi-6b through ``ServeEngine.generate`` (uniform and ragged
@@ -15,17 +15,23 @@ and read just after, that each went through the kernels:
 * training gpt2-124m: 6 steps of ``make_train_step`` (AdamW) on one fixed
   batch of 8 x 1024 tokens, with remat "full", each step counted on its
   own: 24 forward launches, 12 of each backward kernel, 0 of the plain
-  versions.
+  versions;
+* serving zamba2-1.2b through ``ServeEngine.generate``: a prefill of
+  exactly 38 SSD-scan (B4) and 6 flash-attention launches, decode steps of
+  exactly 6 decode-attention launches and no scan, 0 plain launches.
 
 It holds the kernel path against the plain path at full width (logits
-while serving, loss and gradients while training), the float32 smoke
-models' card runs against their CPU runs, times the kernels, the serving
-steps and the train step, and prints:
+while serving, loss and gradients while training; for zamba2 the whole
+path in float32, each Mamba2 block in bf16, and the bf16 path's drift
+printed), the float32 smoke models' card runs against their CPU runs,
+times the kernels, the serving steps and the train step, and prints:
 
 * a ``{"serving": ...}`` line: prefill ms, decode ms per step, tokens/s,
   peak memory;
 * a ``{"training": ...}`` line: train-step ms, tokens/s, device-busy ms and
   idle share from ``torch.profiler``, peak memory, the losses;
+* a ``{"zamba2": ...}`` line: prefill ms, decode ms per step, tokens/s,
+  device-busy ms and idle share, peak memory, the full-width readings;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
@@ -55,14 +61,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import gpt2_124m, yi_6b  # noqa: E402
+from repro_torch.configs import gpt2_124m, yi_6b, zamba2_1p2b  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as FR  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as SO  # noqa: E402
+from repro_torch.kernels.ssm_scan import ref as SR  # noqa: E402
 from repro_torch.launch import make_train_step, value_and_grad  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import flatten, unflatten  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
@@ -70,7 +79,7 @@ from repro_torch.serving import (RequestScheduler, ServeEngine,  # noqa: E402
                                  TPServeEngine)
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core
-# operations/s. Both timed kernels run in bf16.
+# operations/s. Every timed kernel takes bf16 inputs.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 
@@ -134,10 +143,34 @@ ATTN_LEAVES = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
 # about lr whatever the size of its gradient, so a gradient of float32
 # rounding size still moves a param).
 SMOKE_TRAIN_REL = 5e-5
+# B4 against the plain scan, for y and for the final state: the relative L2
+# error of each batch row, and elementwise |d| <= rtol |ref| + atol_rms
+# rms(ref). Both compute in float32 from the same inputs (bf16 inputs are
+# cast first), so they differ only by the order of the sums: the chunked
+# form's exp(cum[t] - cum[s]) against the sequential product of decays.
+# Measured on an H100: row errors <= 1.02e-6, elements <= 0.234 of the
+# limit 1e-4 |ref| + 3e-5 rms (PERF.md). The same limits must reject
+# six planted faults of the plain scan (SSD_FAULTS).
+SSD_REL_L2 = 1e-5
+SSD_TOL = dict(rtol=1e-4, atol_rms=3e-5)
+# zamba2-1.2b at full width, kernel path against plain path. (a) float32,
+# the whole path: the relative L2 error of the prefill logits and of each
+# cache leaf, and of teacher-forced decode logits against forward's;
+# (b) bf16, each of the 38 Mamba2 blocks on the same input: the relative
+# L2 error of each batch row of its output and of its final state.
+# Set from the readings on an H100 (PERF.md); each must reject planted
+# faults of the scan. (a) reads up to 1.36e-3, not the ~1e-6 of one
+# block: the random-weight model compounds each block's float32 rounding
+# difference over the 44 blocks (the drift of each block's input, printed,
+# grows from 1.5e-6 to 5.4e-4); its planted faults read 1.0 and up.
+# (b) reads up to 1.83e-4; its weakest planted fault (the state reset
+# every 64 steps) 0.071.
+ZAMBA_F32_REL_L2 = 5e-3
+ZAMBA_LAYER_REL_L2 = 1e-3
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 6
 
-SERVE_MAX_LEN = 544          # 512-token prompts + 32 new tokens
+SERVE_MAX_LEN = 544          # 512-token prompts + 32 new tokens (both models)
 PROMPT_LENS = [128, 256, 384, 512]
 N_NEW = 32
 SCHED_SLOTS, SCHED_REQUESTS, SCHED_PREFILL = 4, 8, 256
@@ -193,6 +226,22 @@ def time_ms(fn, inputs, iters: int = 20) -> float:
         check(cycles <= 256 * SLEEP_CYCLES, "cannot queue the timed loop")
 
 
+def time_ms_unqueued(fn, inputs, iters: int = 3) -> float:
+    """Mean time of ``fn(*inputs[i % n])`` between CUDA events, with no
+    device sleep in front: for a plain version of thousands of launches a
+    call, which fill the launch queue, so that the host cannot queue the
+    loop ahead. Its time includes the host's launch cost."""
+    fn(*inputs[0])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, ops: float):
     """(ms, what bounds it): the larger of bytes over the HBM rate and bf16
     operations over the tensor-core peak."""
@@ -212,6 +261,7 @@ def flash_cases():
     return [("yi-6b prefill", 4, 32, 4, 512, 512, 128, bf, True),
             ("yi-6b long prompt", 1, 32, 4, 2048, 2048, 128, bf, True),
             ("yi-6b admit", 1, 32, 4, 256, 256, 128, bf, True),
+            ("zamba2 prefill", 4, 32, 32, 512, 512, 64, bf, True),
             ("ragged GQA non-causal", 3, 8, 2, 77, 301, 64, f32, False),
             ("ragged GQA non-causal", 2, 8, 2, 77, 130, 64, bf, False),
             ("ragged GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
@@ -235,6 +285,8 @@ def decode_cases():
              [n + N_NEW // 2 for n in PROMPT_LENS]),
             ("yi-6b heads, an empty row", 4, 32, 4, 200, 128, bf,
              [0, 77, 199, 201]),
+            ("zamba2 serving", 4, 32, 32, SERVE_MAX_LEN, 64, bf,
+             [512 + N_NEW // 2] * 4),
             ("ragged GQA f32", 3, 8, 2, 333, 64, f32, [333, 17, 200]),
             ("ragged GQA", 3, 8, 2, 128, 64, bf, [1, 128, 300]),
             ("GQA full cache", 2, 4, 2, 64, 16, f32, [64, 64]),
@@ -499,6 +551,161 @@ def check_bwd(device):
     return errs
 
 
+SSD_FAULTS = ("decay left out at chunk boundaries",
+              "dt left out of the input term",
+              "output read from the state before the step",
+              "state reset every 64 steps", "B and C swapped",
+              "final state not written")
+
+
+def plain_ssd(xh, dt, A, Bm, Cm, fault: str):
+    """The plain scan written out again with one planted ``fault`` (of
+    SSD_FAULTS): (y, final state), float32. Only the planted faults use
+    it."""
+    x, dtf, b, c = xh.float(), dt.float(), Bm.float(), Cm.float()
+    if fault == "B and C swapped":
+        b, c = c, b
+    da = torch.exp(dtf * A)
+    dtx = x if fault == "dt left out of the input term" \
+        else dtf[..., None] * x
+    undecayed = fault == "decay left out at chunk boundaries"
+    reset = fault == "state reset every 64 steps"
+    early = fault == "output read from the state before the step"
+    B, T, H, P = x.shape
+    h = torch.zeros((B, H, P, b.shape[-1]), device=x.device)
+    ys = []
+    for t in range(T):
+        edge = t > 0 and t % 64 == 0
+        if edge and reset:
+            h = torch.zeros_like(h)
+        before = h
+        h = (1.0 if edge and undecayed else da[:, t, :, None, None]) * h \
+            + dtx[:, t, :, :, None] * b[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", before if early else h,
+                               c[:, t]))
+    if fault == "final state not written":
+        h = torch.zeros_like(h)
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_faults(T: int):
+    """The faults that change the scan's result at T steps: the two at the
+    64-step chunk boundaries need T > 64."""
+    boundary = ("decay left out at chunk boundaries",
+                "state reset every 64 steps")
+    return [f for f in SSD_FAULTS if T > 64 or f not in boundary]
+
+
+def ssd_agreement(out, ref):
+    """(ok, max |out - ref|, largest relative L2 error of a batch row,
+    largest |d| / (rtol |ref| + atol_rms rms(ref)) of an element, which
+    passes at <= 1)."""
+    d = out.float() - ref.float()
+    rel = (d.flatten(1).norm(dim=1) / ref.float().flatten(1).norm(dim=1)
+           .clamp_min(1e-30)).max().item()
+    lim = SSD_TOL["rtol"] * ref.abs() \
+        + SSD_TOL["atol_rms"] * ref.float().square().mean().sqrt()
+    elem = (d.abs() / lim.clamp_min(1e-30)).max().item()
+    return rel <= SSD_REL_L2 and elem <= 1, d.abs().max().item(), rel, elem
+
+
+def ssd_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, T, H, P, N, dtype, layout): "model" takes B and C as
+    # strided slices of one (B, T, e) tensor, as w_in's split gives them;
+    # "strided" also xh and dt
+    return [("zamba2 prefill", 4, 512, 64, 64, 64, bf, "model"),
+            ("zamba2 prefill", 4, 512, 64, 64, 64, f32, "model"),
+            ("one step", 2, 1, 8, 64, 64, bf, "contiguous"),
+            ("one step", 2, 1, 8, 64, 64, f32, "contiguous"),
+            ("one chunk less a step", 2, 63, 8, 64, 64, bf, "contiguous"),
+            ("one chunk", 2, 64, 8, 64, 64, f32, "contiguous"),
+            ("one chunk and a step", 2, 65, 8, 64, 64, bf, "strided"),
+            ("one chunk and a step", 2, 65, 8, 64, 64, f32, "contiguous"),
+            ("smoke width", 2, 77, 8, 32, 16, f32, "contiguous"),
+            ("smoke width", 3, 130, 8, 32, 16, bf, "strided")]
+
+
+def ssd_inputs(gen, B, T, H, P, N, dtype, layout, device):
+    """(xh, dt, A, Bm, Cm) as the Mamba2 block makes them: dt =
+    softplus(.) > 0 in ``dtype``, A = -exp(.) < 0 in float32."""
+    e = 2 * H * P + 2 * N + H
+    zx = torch.randn(B, T, e, generator=gen, device=device).to(dtype)
+    xh, Bm, Cm, dt = zx.split([2 * H * P, N, N, H], dim=-1)
+    xh = xh[..., H * P:].unflatten(-1, (H, P))
+    dt = F.softplus(dt.float() - 1).to(dtype)
+    if layout == "strided":
+        dt = torch.cat([dt, dt], dim=-1)[..., :H]
+    else:
+        xh = xh.contiguous()
+        if layout == "contiguous":
+            Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device=device))
+    return xh, dt, A, Bm, Cm
+
+
+def check_ssd(device):
+    """B4 against the plain scan in every case, y and the final state; the
+    same limits must reject each planted fault. Returns the max abs error
+    at the bf16 prefill case."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    err = 0.0
+    for label, B, T, H, P, N, dt_, layout in ssd_cases():
+        ins = ssd_inputs(gen, B, T, H, P, N, dt_, layout, device)
+        y, h = SO.ssd_scan(*ins, return_state=True)
+        torch.cuda.synchronize()
+        y_ref, h_ref = SR.ssd_scan_ref(*ins)
+        name = str(dt_).replace("torch.", "")
+        shape = f"B={B} T={T} H={H} P={P} N={N} {name} {layout}"
+        ry, rh = ssd_agreement(y, y_ref), ssd_agreement(h, h_ref)
+        print(f"ssd_scan {label} {shape}: y max|d|={ry[1]:.3g} row rel "
+              f"L2={ry[2]:.3g} elem={ry[3]:.3g}; state max|d|={rh[1]:.3g} "
+              f"row rel L2={rh[2]:.3g} elem={rh[3]:.3g} "
+              f"{'ok' if ry[0] and rh[0] else 'MISMATCH'}")
+        check(ry[0] and rh[0], f"ssd_scan disagrees with its plain version "
+                               f"({label}, {shape})")
+        for fault in ssd_faults(T):
+            fy, fh = plain_ssd(*ins, fault)
+            fy, fh = ssd_agreement(fy, y_ref), ssd_agreement(fh, h_ref)
+            caught = not (fy[0] and fh[0])
+            print(f"  planted fault '{fault}': row rel L2 y/state = "
+                  f"{fy[2]:.3g}/{fh[2]:.3g}, elem {fy[3]:.3g}/{fh[3]:.3g} "
+                  f"{'rejected' if caught else 'NOT REJECTED'}")
+            check(caught, f"the ssd_scan limits pass a planted fault "
+                          f"({fault}, {label}, {shape})")
+        if label == "zamba2 prefill" and dt_ == torch.bfloat16:
+            err = max(ry[1], rh[1])
+    return err
+
+
+def check_ssd_grad(device):
+    """SSDScan (B4 forward, autograd of the plain scan backward) against
+    autograd of the plain scan, all five inputs' gradients through y and
+    the final state, at the smoke width."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    ins = ssd_inputs(gen, 2, 130, 4, 32, 16, torch.float32, "strided",
+                     device)
+    gy = torch.randn(2, 130, 4, 32, generator=gen, device=device)
+    gh = torch.randn(2, 4, 32, 16, generator=gen, device=device)
+    grads = {}
+    for route, fn in (("kernel", lambda *a: SO.ssd_scan(*a, return_state=True)),
+                      ("plain", SR.ssd_scan_ref)):
+        leaves = [t.detach().requires_grad_() for t in ins]
+        zero_counts()
+        y, h = fn(*leaves)
+        ((y * gy).sum() + (h * gh).sum()).backward()
+        torch.cuda.synchronize()
+        grads[route] = ([t.grad for t in leaves], read_counts())
+    (gk, nk), (gp, _) = grads["kernel"], grads["plain"]
+    rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(gk, gp))
+    print(f"ssd_scan gradient (SSDScan vs autograd of the plain scan, "
+          f"B=2 T=130 H=4 P=32 N=16 f32): worst input's rel L2 {rel:.3g} "
+          f"(limit {SSD_REL_L2}); launches {nk}")
+    check(nk["ssd_scan"] == 1 and nk["ssd_scan_ref"] == 1,
+          f"SSDScan did not run B4 forward and the plain scan backward: {nk}")
+    check(rel <= SSD_REL_L2, "SSDScan's gradient disagrees with the plain")
+
+
 def check_refusals(device):
     """On the card a wrapper launches its kernel or raises: what the
     kernels do not take is refused, and nothing falls back to the plain
@@ -508,6 +715,14 @@ def check_refusals(device):
     k16 = torch.randn(1, 8, 4, 16)
     h16 = torch.randn(1, 8, 4, 16, device=device).half()
     lse = torch.zeros(1, 4, 8, device=device)
+
+    def scan(P, N, dtype=torch.float32):
+        return (torch.zeros(1, 8, 2, P, device=device, dtype=dtype),
+                torch.ones(1, 8, 2, device=device),
+                -torch.ones(2, device=device),
+                torch.zeros(1, 8, N, device=device),
+                torch.zeros(1, 8, N, device=device))
+
     for what, call, exc in (
             ("head dim 8", lambda: FO.flash_attention(q, q, q), ValueError),
             ("backward, head dim 8", lambda: FO.flash_attention_bwd(
@@ -517,7 +732,15 @@ def check_refusals(device):
             ("float16", lambda: DO.decode_attention(
                 q[:, 0].half(), q.half(), q.half(), 3), TypeError),
             ("k on the CPU", lambda: FO.flash_attention(
-                k16.to(device), k16, k16), ValueError)):
+                k16.to(device), k16, k16), ValueError),
+            ("scan (P, N) = (16, 8)", lambda: SO.ssd_scan(
+                *scan(16, 8)), ValueError),
+            ("scan Bm on the CPU", lambda: SO.ssd_scan(
+                *scan(64, 64)[:3], torch.zeros(1, 8, 64),
+                scan(64, 64)[4]), ValueError),
+            ("scan dt float32, xh bfloat16", lambda: SO.ssd_scan(
+                *scan(64, 64, torch.bfloat16)[:1],
+                *scan(64, 64)[1:]), TypeError)):
         try:
             call()
         except exc as e:
@@ -530,8 +753,8 @@ def check_refusals(device):
 
 def time_kernels(device, errs, launches):
     """The kernels' line: each kernel, its plain version and the library
-    call timed at the main paths' shapes (B1 and B3 serving, B2a and B2b
-    training), with the card's bound. ``launches`` holds each path's
+    call timed at the main paths' shapes (B1 and B3 serving yi-6b, B2a and
+    B2b training, B4 serving zamba2), with the card's bound. ``launches`` holds each path's
     counts; ``launches`` in the line is their sum."""
     gen = torch.Generator(device=device).manual_seed(1)
     bf = torch.bfloat16
@@ -642,6 +865,37 @@ def time_kernels(device, errs, launches):
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                     "note": note, "shape": shape})
+
+    # B4 at a Mamba2 block of zamba2-1.2b's prefill: (4, 512), 64 heads
+    B, T, H, P, N = 4, 512, 64, 64, 64
+    sets = [ssd_inputs(gen, B, T, H, P, N, bf, "model", device)
+            for _ in range(4)]
+    ms = time_ms(lambda *a: SO.ssd_scan(*a, return_state=True), sets)
+    plain = time_ms_unqueued(lambda *a: SR.ssd_scan_ref(*a), sets)
+    nbytes = 2 * (B * T * H * P + B * T * H + 2 * B * T * N) + 4 * H \
+        + 4 * (B * T * H * P + B * H * P * N)
+    # the chunked form over 64-step chunks: C.B^T and G.x over the causal
+    # (s <= t) pairs, C.h^T for every chunk after the first (h is 0 in
+    # it), and the state update
+    chunks = [min(64, T - t0) for t0 in range(0, T, 64)]
+    ops = B * H * sum(r * (r + 1) * (N + P) + 2 * r * P * N * (2 if i else 1)
+                      for i, r in enumerate(chunks))
+    b_ms, b_by = bound(nbytes, ops)
+    out.append({"name": "ssd_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
+                "replaces": "src/repro/kernels/ssm_scan/kernel.py:22",
+                "launches": sum(n["ssd_scan"] for n in launches.values()),
+                "launches_by_path": {p: n["ssd_scan"]
+                                     for p, n in launches.items()},
+                "max_abs_err": errs["ssd_scan"], "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "note": "no single PyTorch call computes the scan; the "
+                        "operations are counted at the bf16 rate of the "
+                        "inputs, while the kernel runs them as float32 "
+                        f"FMAs ({ops / 67e12 * 1e3:.4f} ms at the card's "
+                        "67 TFLOP/s)",
+                "shape": f"B={B} T={T} H={H} P={P} N={N} bf16, B and C "
+                         f"strided, final state written"})
     return out
 
 
@@ -652,12 +906,13 @@ def time_kernels(device, errs, launches):
 
 # every kernel launcher and plain version, each with its launch counter
 COUNTED = (FO.flash_attention, FO.flash_bwd_dq, FO.flash_bwd_dkv,
-           DO.decode_attention, FR.flash_attention_ref,
-           FR.flash_attention_bwd_ref, DR.decode_attention_ref)
+           DO.decode_attention, SO.ssd_scan, FR.flash_attention_ref,
+           FR.flash_attention_bwd_ref, DR.decode_attention_ref,
+           SR.ssd_scan_ref)
 KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
-           "decode_attention")
+           "decode_attention", "ssd_scan")
 PLAIN = ("flash_attention_ref", "flash_attention_bwd_ref",
-         "decode_attention_ref")
+         "decode_attention_ref", "ssd_scan_ref")
 
 
 def zero_counts() -> None:
@@ -748,6 +1003,7 @@ def serve(device, card):
         check(launches[path]["flash_bwd_dq"] == 0
               and launches[path]["flash_bwd_dkv"] == 0,
               f"{path}: a backward kernel ran while serving")
+        check(launches[path]["ssd_scan"] == 0, f"{path}: B4 ran on yi-6b")
         check(all(launches[path][n] == 0 for n in PLAIN),
               f"{path}: a plain version ran")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -838,18 +1094,27 @@ def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
 
 def small_model_matches_cpu(device) -> None:
     """Smoke width in float32: greedy tokens on the card (kernels) equal
-    those on the CPU (plain versions)."""
-    cfg = yi_6b.smoke_config(dtype=torch.float32)
-    cpu = build_model(cfg, device="cpu")
-    params = cpu.init(torch.Generator().manual_seed(0))
-    prompts = np.random.RandomState(1).randint(1, cfg.vocab, (3, 16))
-    out = {}
-    for dev, model in (("cpu", cpu), ("cuda", build_model(cfg, device))):
-        eng = ServeEngine(model, params, max_len=32, device=dev)
-        out[dev] = eng.generate(prompts, 12, prompt_lens=[16, 5, 11])
-    check(np.array_equal(out["cuda"], out["cpu"]),
-          "smoke model: card and CPU tokens differ")
-    print("smoke model f32: card tokens equal CPU tokens")
+    those on the CPU (plain versions), for yi-6b (ragged prompts) and
+    zamba2-1.2b (uniform prompts; the hybrid family takes no other)."""
+    for arch, lens in ((yi_6b, [16, 5, 11]), (zamba2_1p2b, None)):
+        cfg = arch.smoke_config(dtype=torch.float32)
+        cpu = build_model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        prompts = np.random.RandomState(1).randint(1, cfg.vocab, (3, 16))
+        out = {}
+        for dev, model in (("cpu", cpu), ("cuda", build_model(cfg, device))):
+            eng = ServeEngine(model, params, max_len=32, device=dev)
+            zero_counts()
+            out[dev] = eng.generate(prompts, 12, prompt_lens=lens)
+        n = read_counts()
+        check(np.array_equal(out["cuda"], out["cpu"]),
+              f"{cfg.name} smoke model: card and CPU tokens differ")
+        check(all(n[k] == 0 for k in PLAIN) and n["flash_attention"] > 0
+              and n["decode_attention"] > 0
+              and (n["ssd_scan"] > 0) == (cfg.family == "hybrid"),
+              f"{cfg.name} smoke model on the card: launches {n}")
+        print(f"{cfg.name} smoke model f32: card tokens equal CPU tokens; "
+              f"card launches {n}")
 
 
 def small_train_matches_cpu(device) -> None:
@@ -1037,7 +1302,7 @@ def train(device, card):
     step = make_train_step(model, opt_cfg)
     state = adamw_init(params, opt_cfg)
     L = cfg.n_layers
-    want = {n: 0 for n in PLAIN + ("decode_attention",)}
+    want = {n: 0 for n in PLAIN + ("decode_attention", "ssd_scan")}
     want.update(flash_attention=2 * L, flash_bwd_dq=L, flash_bwd_dkv=L)
     losses, step_ms, per_step = [], [], []
     torch.cuda.synchronize()
@@ -1078,6 +1343,279 @@ def train(device, card):
         "profile": profile}}
 
 
+# ---------------------------------------------------------------------------
+# zamba2-1.2b serving at full width
+# ---------------------------------------------------------------------------
+
+
+def scan_route(fault=None):
+    """The Mamba2 block's scan as the plain version (``fault`` None) or as
+    the plain version with a planted fault, with the wrapper's
+    signature."""
+    def route(xh, dt, A, Bm, Cm, return_state=False):
+        y, h = SR.ssd_scan_ref(xh, dt, A, Bm, Cm) if fault is None \
+            else plain_ssd(xh, dt, A, Bm, Cm, fault)
+        return (y, h) if return_state else y
+    return route
+
+
+@contextmanager
+def scan_swapped(route):
+    saved = BL.ssd_scan
+    BL.ssd_scan = route
+    try:
+        yield
+    finally:
+        BL.ssd_scan = saved
+
+
+@contextmanager
+def plain_path(fault=None):
+    """Every kernel of the zamba2 path swapped for its plain version, the
+    scan with a planted ``fault`` if one is named."""
+    with plain_attention(), scan_swapped(scan_route(fault)):
+        yield
+
+
+@contextmanager
+def recording_blocks(store: list):
+    """Append each Mamba2 block's (normed input, params) to ``store``."""
+    saved = BL.mamba2_mix
+
+    def record(x, p, cfg, state=None):
+        store.append((x, p))
+        return saved(x, p, cfg, state=state)
+    BL.mamba2_mix = record
+    try:
+        yield
+    finally:
+        BL.mamba2_mix = saved
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def row_rel_l2(a, b) -> float:
+    d = (a.float() - b.float()).flatten(1).norm(dim=1)
+    return (d / b.float().flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
+
+
+def prefill_reading(got, ref) -> dict:
+    """Relative L2 error of the logits and of each cache leaf."""
+    (lg, cg), (lr, cr) = got, ref
+    out = {"logits": rel_l2(lg, lr)}
+    for key in cr:
+        if key == "len":
+            check(torch.equal(cg[key], cr[key]), "cache lengths differ")
+        else:
+            out[key] = rel_l2(cg[key], cr[key])
+    return out
+
+
+def decode_vs_forward(model, params, prompts, feed) -> float:
+    """Teacher-forced decode logits after a prefill against forward's
+    logits at the same positions: their relative L2 error."""
+    S = prompts.shape[1]
+    logits, cache = model.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    steps = [logits]
+    for i in range(feed.shape[1]):
+        logits, cache = model.decode_step(params, cache, feed[:, i:i + 1])
+        steps.append(logits)
+    full = torch.cat([torch.as_tensor(prompts, device=feed.device), feed],
+                     dim=1)
+    ref = model.forward(params, full)[:, S - 1:]
+    return rel_l2(torch.cat(steps, dim=1), ref)
+
+
+def zamba2_f32_path(device, model, params, prompts, feed) -> dict:
+    """(a) The whole path in float32 at full width: kernel prefill's logits
+    and every cache leaf against the plain prefill, and teacher-forced
+    decode against forward; each must also reject the planted 'final state
+    not written' and 'dt left out' faults of the scan."""
+    cfg = model.cfg
+    kern_in, plain_in = [], []
+    zero_counts()
+    with recording_blocks(kern_in):
+        kern = model.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    n = read_counts()
+    check(n["ssd_scan"] == cfg.n_layers
+          and n["flash_attention"] == cfg.n_layers // cfg.attn_every
+          and all(n[k] == 0 for k in PLAIN),
+          f"float32 prefill launches {n}")
+    with plain_path(), recording_blocks(plain_in):
+        plain = model.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    got = prefill_reading(kern, plain)
+    drift = [rel_l2(a, b) for (a, _), (b, _) in zip(kern_in, plain_in)]
+    del kern, kern_in, plain_in
+    dvf = decode_vs_forward(model, params, prompts, feed)
+    worst = max(max(got.values()), dvf)
+    print(f"zamba2 (a) float32 whole path, kernel vs plain prefill: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in got.items())
+          + f"; decode vs forward {dvf:.3g}; worst {worst:.3g} (limit "
+          f"{ZAMBA_F32_REL_L2}); drift of each Mamba2 block's input: "
+          + " ".join(f"{d:.2g}" for d in drift))
+    check(worst <= ZAMBA_F32_REL_L2, "float32 zamba2 kernel path disagrees")
+    faults = {}
+    for fault in ("final state not written", "dt left out of the input term"):
+        with plain_path(fault):
+            pre = max(prefill_reading(
+                model.prefill(params, prompts, max_len=SERVE_MAX_LEN),
+                plain).values())
+        with scan_swapped(scan_route(fault)):
+            dec = decode_vs_forward(model, params, prompts, feed)
+        faults[fault] = {"prefill": pre, "decode_vs_forward": dec}
+        print(f"  planted fault '{fault}': prefill worst {pre:.3g}, decode "
+              f"vs forward {dec:.3g}; rejected by both: "
+              f"{pre > ZAMBA_F32_REL_L2 and dec > ZAMBA_F32_REL_L2}")
+        check(pre > ZAMBA_F32_REL_L2 and dec > ZAMBA_F32_REL_L2,
+              f"the float32 zamba2 limit passes a planted fault ({fault})")
+    return {"prefill": got, "decode_vs_forward": dvf, "input_drift": drift,
+            "faults": faults}
+
+
+def zamba2_bf16_layers(engine, prompts) -> dict:
+    """(b) and (c) in bf16. (c): the whole prefill, kernel vs plain, with
+    the drift of each Mamba2 block's input printed, not gated. (b): each
+    of the 38 blocks on the plain run's input, kernel vs plain, to one
+    limit that every planted scan fault must pass at every block."""
+    cfg = engine.model.cfg
+    kern_in, plain_in = [], []
+    with recording_blocks(kern_in):
+        lk, _ = engine._prefill(prompts)
+    with plain_path(), recording_blocks(plain_in):
+        lp, _ = engine._prefill(prompts)
+    drift = [rel_l2(a, b) for (a, _), (b, _) in zip(kern_in, plain_in)]
+    whole = rel_l2(lk, lp)
+    print(f"zamba2 (c) bf16 whole path, kernel vs plain prefill logits: rel "
+          f"L2 {whole:.3g} (not gated); drift of each Mamba2 block's input: "
+          + " ".join(f"{d:.2g}" for d in drift))
+
+    def block(x, p, route):
+        with scan_swapped(route):
+            out, st = BL.mamba2_mix(x, p, cfg)
+        return out, st["ssm"]
+
+    def reading(got, ref):
+        return max(row_rel_l2(got[0], ref[0]), row_rel_l2(got[1], ref[1]))
+
+    per_layer, faults = [], {f: [] for f in SSD_FAULTS}
+    for x, p in plain_in:
+        ref = block(x, p, scan_route())
+        per_layer.append(reading(block(x, p, SO.ssd_scan), ref))
+        for fault in SSD_FAULTS:
+            faults[fault].append(reading(block(x, p, scan_route(fault)), ref))
+    worst = max(per_layer)
+    print(f"zamba2 (b) bf16 layer by layer, kernel vs plain (block output "
+          f"and final state, worst batch row): worst {worst:.3g} at block "
+          f"{int(np.argmax(per_layer))} (limit {ZAMBA_LAYER_REL_L2}); "
+          + " ".join(f"{r:.2g}" for r in per_layer))
+    check(len(per_layer) == cfg.n_layers, f"{len(per_layer)} blocks ran")
+    check(worst <= ZAMBA_LAYER_REL_L2, "a bf16 Mamba2 block disagrees")
+    for fault, rs in faults.items():
+        print(f"  planted fault '{fault}': weakest block {min(rs):.3g}, "
+              f"strongest {max(rs):.3g}; rejected at every block: "
+              f"{min(rs) > ZAMBA_LAYER_REL_L2}")
+        check(min(rs) > ZAMBA_LAYER_REL_L2, f"the bf16 block limit passes a "
+                                            f"planted fault ({fault})")
+    return {"whole_path_logits_rel_l2": whole, "input_drift": drift,
+            "layer_worst_rel_l2": worst,
+            "faults_weakest_block": {f: min(rs) for f, rs in faults.items()}}
+
+
+def zamba2(device, card):
+    """zamba2-1.2b at full width with random weights: (a) float32 whole
+    path, then the bf16 ServeEngine: generate, the launches of a prefill
+    and of a decode step, (b) and (c), and the step times."""
+    cfg = zamba2_1p2b.config()
+    L, G = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    rng = np.random.RandomState(3)
+    prompts = rng.randint(1, cfg.vocab, size=(4, 512)).astype(np.int32)
+    feed = torch.as_tensor(rng.randint(1, cfg.vocab, size=(4, 4)),
+                           device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model32 = build_model(zamba2_1p2b.config(dtype=torch.float32),
+                          device=device)
+    params = model32.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"setup: zamba2-1.2b ({cfg.param_count() / 1e9:.3f} B params) "
+          f"initialised in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        f32 = zamba2_f32_path(device, model32, params, prompts, feed)
+    model = build_model(cfg, device=device)
+    engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN, device=device)
+    del params, model32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, N_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    n_gen = read_counts()
+    want = {k: 0 for k in KERNELS + PLAIN}
+    want.update(ssd_scan=L, flash_attention=G, decode_attention=G * N_NEW)
+    print(f"zamba2 generate launches: {n_gen}")
+    check(n_gen == want, f"zamba2 generate: launches {n_gen}, want {want}")
+    check(toks.shape == (4, 512 + N_NEW)
+          and np.array_equal(toks[:, :512], prompts)
+          and ((toks[:, 512:] >= 0) & (toks[:, 512:] < cfg.vocab)).all(),
+          f"zamba2 generate tokens {toks.shape}")
+    zero_counts()
+    logits, cache = engine._prefill(prompts)
+    n_pre = read_counts()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    zero_counts()
+    logits, cache = engine._decode(cache, tok)
+    n_dec = read_counts()
+    print(f"zamba2 prefill launches {n_pre}; decode step launches {n_dec}")
+    check(n_pre == dict(want, decode_attention=0),
+          f"zamba2 prefill: launches {n_pre}")
+    check(n_dec == dict(want, ssd_scan=0, flash_attention=0,
+                        decode_attention=G),
+          f"zamba2 decode step: launches {n_dec}")
+    check(bool(torch.isfinite(logits).all()), "non-finite zamba2 logits")
+
+    with torch.no_grad():
+        bf16 = zamba2_bf16_layers(engine, prompts)
+
+    torch.cuda.synchronize()
+    prefill_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, cache = engine._prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps = 16
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = engine._decode(cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
+    return {"generate": n_gen}, {"zamba2": {
+        "model": "zamba2-1.2b (38 Mamba2 blocks + 1 shared attention block "
+                 "run 6 times, d=2048, random bf16 weights)",
+        "card": card,
+        "prefill_ms": min(prefill_ms), "prefill_shape": "B=4 S=512",
+        "decode_ms_per_step": decode_ms, "decode_batch": 4,
+        "generate_s": t_gen, "generate_tokens_per_s": 4 * N_NEW / t_gen,
+        "decode_tokens_per_s": 4 / (decode_ms / 1e3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "setup_peak_memory_gb": setup_peak_gb,
+        "launches": {"generate": n_gen, "prefill": n_pre,
+                     "decode_step": n_dec},
+        "float32_path": f32, "bf16": bf16, "profile": profile}}
+
+
 def matmul_shapes(prof, n: int):
     """The matmul kernels' device ms per step by (kernel, launching
     operator, its input shapes and dtypes), the largest 8."""
@@ -1113,12 +1651,15 @@ def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
     if busy == 0:
         return None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
-    groups = {"attention kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"attention kernels": 0.0, "scan kernel": 0.0, "matmul": 0.0,
+              "other": 0.0}
     for name, t in per.items():
         low = name.lower()
         if any(w in low for w in ("flash_fwd", "dq_kernel", "dkv_kernel",
                                   "decode_partial", "decode_combine")):
             groups["attention kernels"] += t
+        elif "ssd_kernel" in low:
+            groups["scan kernel"] += t
         elif "nvjet" in low or "gemm" in low or "cutlass" in low:
             groups["matmul"] += t
         else:
@@ -1149,6 +1690,8 @@ def main() -> None:
 
     errs = check_kernels(device)
     errs.update(check_bwd(device))
+    errs["ssd_scan"] = check_ssd(device)
+    check_ssd_grad(device)
     check_refusals(device)
     small_model_matches_cpu(device)
     small_train_matches_cpu(device)
@@ -1158,13 +1701,18 @@ def main() -> None:
     launches[f"train ({TRAIN_STEPS} steps)"] = {
         n: sum(c[n] for c in per_step) for n in per_step[0]}
     torch.cuda.empty_cache()
+    z_launches, zamba = zamba2(device, card)
+    launches["zamba2 generate"] = z_launches["generate"]
+    torch.cuda.empty_cache()
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
-              f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "
+              f"library {lib}, bound {k['bound_ms']:.4f} by "
               f"{k['bound_by']}) on {card}")
     print(json.dumps(serving))
     print(json.dumps(training))
+    print(json.dumps(zamba))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

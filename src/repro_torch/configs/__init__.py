@@ -14,6 +14,7 @@ ARCH_MODULES = {
     "yi-6b": "yi_6b",
     # the paper's own evaluation model
     "gpt2-124m": "gpt2_124m",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 

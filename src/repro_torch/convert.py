@@ -2,11 +2,13 @@
 the port.
 
 A reference param tree (``jax.tree_util.tree_map(np.asarray, params)``) is
-a nested dict of numpy arrays. Its leaves, in ``jax.tree_util`` order, are
-``blocks/attn/{wk,wo,wq,wv}``, ``blocks/ln1``, ``blocks/ln2``,
-``blocks/mlp/{w_down,w_gate,w_up}``, then ``embed``, ``final_norm`` and
-``lm_head``; :func:`repro_torch.models.lm.flatten` walks the port's params
-in the same order.
+a nested dict of numpy arrays. Its leaves, in ``jax.tree_util`` order, are,
+for the dense family, ``blocks/attn/{wk,wo,wq,wv}``, ``blocks/ln1``,
+``blocks/ln2``, ``blocks/mlp/{w_down,w_gate,w_up}``, then ``embed``,
+``final_norm`` and ``lm_head``; for the hybrid family ``embed``,
+``final_norm``, ``groups/{ln,m/*}``, ``lm_head``, ``rem/{ln,m/*}`` and
+``shared_attn/{attn/*,ln,ln2,mlp/*}``. :func:`repro_torch.models.lm.flatten`
+walks the port's params in the same order.
 """
 
 from __future__ import annotations
@@ -17,24 +19,50 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .models.blocks import CONV_K
 from .models.common import ModelConfig
-from .models.lm import flatten, unflatten
+from .models.lm import flatten, hybrid_layout, unflatten
+
+
+def _block_shapes(cfg: ModelConfig, lead: tuple, attn_mlp: bool) -> dict:
+    """Shapes of one block's leaves on the leading axes ``lead``: the
+    attention and MLP (``attn_mlp``) or the Mamba2 mixer."""
+    D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    if attn_mlp:
+        return {"attn/wk": (*lead, D, KV, hd), "attn/wo": (*lead, H, hd, D),
+                "attn/wq": (*lead, D, H, hd), "attn/wv": (*lead, D, KV, hd),
+                "mlp/w_down": (*lead, F, D), "mlp/w_gate": (*lead, D, F),
+                "mlp/w_up": (*lead, D, F)}
+    d_in = cfg.ssm_expand * D
+    Hm = d_in // cfg.ssm_head_dim
+    return {"m/a_log": (*lead, Hm), "m/d_skip": (*lead, d_in),
+            "m/dt_bias": (*lead, Hm),
+            "m/w_conv": (*lead, CONV_K, d_in),
+            "m/w_in": (*lead, D, 2 * d_in + 2 * cfg.ssm_state + Hm),
+            "m/w_out": (*lead, d_in, D), "ln": (*lead, D)}
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """'/'-joined path -> shape of every dense-family param leaf."""
-    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    L, F, V = cfg.n_layers, cfg.d_ff, cfg.vocab
-    shapes = {
-        "blocks/attn/wk": (L, D, KV, hd), "blocks/attn/wo": (L, H, hd, D),
-        "blocks/attn/wq": (L, D, H, hd), "blocks/attn/wv": (L, D, KV, hd),
-        "blocks/ln1": (L, D), "blocks/ln2": (L, D),
-        "blocks/mlp/w_down": (L, F, D), "blocks/mlp/w_gate": (L, D, F),
-        "blocks/mlp/w_up": (L, D, F),
-        "embed": (V, D), "final_norm": (D,),
-    }
+    """'/'-joined path -> shape of every param leaf of ``cfg``'s family
+    (dense or hybrid)."""
+    D, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    shapes = {"embed": (V, D), "final_norm": (D,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
+    blocks = {}
+    if cfg.family == "hybrid":
+        n_groups, every, n_rem = hybrid_layout(cfg)
+        blocks["groups"] = _block_shapes(cfg, (n_groups, every), False)
+        if n_rem:
+            blocks["rem"] = _block_shapes(cfg, (n_rem,), False)
+        blocks["shared_attn"] = dict(_block_shapes(cfg, (), True),
+                                     ln=(D,), ln2=(D,))
+    else:
+        blocks["blocks"] = dict(_block_shapes(cfg, (L,), True),
+                                ln1=(L, D), ln2=(L, D))
+    for prefix, leaves in blocks.items():
+        shapes.update((f"{prefix}/{k}", v) for k, v in leaves.items())
     return shapes
 
 

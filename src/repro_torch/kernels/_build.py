@@ -29,6 +29,7 @@ SOURCES = {
     "flash_fwd": "flash_attention/csrc/flash_fwd.cu",
     "flash_bwd": "flash_attention/csrc/flash_bwd.cu",
     "decode": "decode_attention/csrc/decode.cu",
+    "ssd_scan": "ssm_scan/csrc/ssd_scan.cu",
 }
 
 _lock = threading.Lock()

@@ -85,14 +85,17 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
-                   layers: int) -> dict:
-    """Attention weights of ``layers`` blocks, stacked on a leading axis.
+                   layers: Optional[int]) -> dict:
+    """Attention weights of ``layers`` blocks, stacked on a leading axis
+    (one unstacked block when ``layers`` is None).
 
     Fan-ins follow the reference: D for wq/wk/wv, H for wo."""
     D, H, KVh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lead = () if layers is None else (layers,)
+    k = len(lead)
     return {
-        "wq": init_dense(gen, (layers, D, H, hd), in_axis=1, dtype=dtype),
-        "wk": init_dense(gen, (layers, D, KVh, hd), in_axis=1, dtype=dtype),
-        "wv": init_dense(gen, (layers, D, KVh, hd), in_axis=1, dtype=dtype),
-        "wo": init_dense(gen, (layers, H, hd, D), in_axis=1, dtype=dtype),
+        "wq": init_dense(gen, (*lead, D, H, hd), in_axis=k, dtype=dtype),
+        "wk": init_dense(gen, (*lead, D, KVh, hd), in_axis=k, dtype=dtype),
+        "wv": init_dense(gen, (*lead, D, KVh, hd), in_axis=k, dtype=dtype),
+        "wo": init_dense(gen, (*lead, H, hd, D), in_axis=k, dtype=dtype),
     }

@@ -1,11 +1,12 @@
-"""Decoder LM of the port: the dense family, for training and serving.
+"""Decoder LM of the port: the dense family (:class:`LM`) and the zamba2
+hybrid family (:class:`HybridLM`), for training and serving.
 
 Parameters are a nested dict of tensors with the reference's keys, the
 blocks stacked on a leading layer axis; the layer loop is plain Python over
 that axis. ``forward`` and ``loss`` are differentiable with respect to the
 params (the training path, with ``cfg.remat`` deciding what each layer
-keeps for the backward); ``prefill`` builds the KV cache, ``decode_step``
-appends one token per sequence to it in place.
+keeps for the backward); ``prefill`` builds the decode cache,
+``decode_step`` appends one token per sequence to it in place.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ from . import attention as A
 from . import blocks as BL
 from .common import ModelConfig, init_dense, rms_norm, rope_cos_sin
 
-# matmul weights; the other leaves are RMSNorm scales
-MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                  "embed", "lm_head")
+# the leaves the reference casts to the activation dtype where it uses
+# them; the others (RMSNorm scales, Mamba2's a_log) stay float32
+CAST_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                "embed", "lm_head", "w_in", "w_out", "w_conv", "dt_bias",
+                "d_skip")
 
 
 def flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -53,13 +56,15 @@ def unflatten(items) -> Dict[str, Any]:
 
 def serving_params(params: Dict[str, Any], cfg: ModelConfig,
                    device) -> Dict[str, Any]:
-    """Params on ``device`` with the matmul weights cast once to ``cfg.dtype``.
+    """Params on ``device`` with the :data:`CAST_WEIGHTS` cast once to
+    ``cfg.dtype``.
 
     That gives the values the reference gets from its per-use
     ``w.astype(x.dtype)``. RMSNorm scales stay float32, because
-    ``rms_norm`` multiplies by them in float32."""
+    ``rms_norm`` multiplies by them in float32, and so does ``a_log``,
+    which the reference reads in float32."""
     def cast(path, leaf):
-        if path.rsplit("/", 1)[-1] in MATMUL_WEIGHTS:
+        if path.rsplit("/", 1)[-1] in CAST_WEIGHTS:
             return leaf.to(device=device, dtype=cfg.dtype)
         return leaf.to(device=device)
     return unflatten((path, cast(path, leaf)) for path, leaf in flatten(params))
@@ -84,13 +89,22 @@ def _layers(blocks: Dict[str, Any], n: int):
     return per
 
 
+def hybrid_layout(cfg: ModelConfig):
+    """(n_groups, blocks per group, remainder blocks) of a hybrid ``cfg``."""
+    every = max(cfg.attn_every, 1)
+    n_groups = cfg.n_layers // every
+    return n_groups, every, cfg.n_layers - n_groups * every
+
+
 class LM:
     """Dense decoder LM (GQA attention, gated MLP, RMSNorm, RoPE)."""
 
+    family = "dense"
+
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.family != "dense":
-            raise ValueError(f"the port serves the dense family only, not "
-                             f"{cfg.family!r}")
+        if cfg.family != self.family:
+            raise ValueError(f"{type(self).__name__} serves the "
+                             f"{self.family} family, not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -242,5 +256,207 @@ class LM:
         return self._logits(params, x), new_cache
 
 
+class HybridLM(LM):
+    """zamba2 hybrid LM: Mamba2 blocks in ``n_groups`` groups of
+    ``attn_every``, ONE shared attention+MLP block (its weights shared,
+    its KV cache per group) run at the start of every group, and the
+    remaining ``n_layers % attn_every`` Mamba2 blocks after the last group.
+
+    The decode cache holds each Mamba2 block's conv rows and SSM state and
+    each group's K/V; a decode step updates them in place."""
+
+    family = "hybrid"
+
+    def _layout(self):
+        return hybrid_layout(self.cfg)
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random params in ``cfg.param_dtype`` from ``gen``, with the
+        reference's shapes, keys and init scales."""
+        if gen.device != self.device:
+            raise ValueError(f"generator on {gen.device}, LM on {self.device}")
+        cfg = self.cfg
+        dt = cfg.param_dtype
+        D, V = cfg.d_model, cfg.vocab
+        G, E, R = self._layout()
+        ones = lambda *shape: torch.ones(shape, dtype=dt, device=self.device)
+        params: Dict[str, Any] = {
+            "embed": init_dense(gen, (V, D), dtype=dt),
+            "final_norm": ones(D),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
+        params["groups"] = {"m": BL.init_mamba2(gen, cfg, dt, (G, E)),
+                            "ln": ones(G, E, D)}
+        if R:
+            params["rem"] = {"m": BL.init_mamba2(gen, cfg, dt, (R,)),
+                             "ln": ones(R, D)}
+        params["shared_attn"] = {
+            "attn": A.init_attention(gen, cfg, dt, None),
+            "mlp": BL.init_mlp(gen, D, cfg.d_ff, dt, None),
+            "ln": ones(D), "ln2": ones(D)}
+        return params
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        G, E, R = self._layout()
+        B, d_in = batch_size, cfg.ssm_expand * cfg.d_model
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        H = d_in // P
+        kv = (G, B, max_len, cfg.n_kv_heads, cfg.hd)
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                 device=self.device)
+        cache = {"conv": zeros((G, E, B, BL.CONV_K - 1, d_in), cfg.dtype),
+                 "ssm": zeros((G, E, B, H, P, N), torch.float32),
+                 "attn_k": zeros(kv, cfg.dtype), "attn_v": zeros(kv, cfg.dtype),
+                 "len": zeros((), torch.int32)}
+        if R:
+            cache["rem_conv"] = zeros((R, B, BL.CONV_K - 1, d_in), cfg.dtype)
+            cache["rem_ssm"] = zeros((R, B, H, P, N), torch.float32)
+        return cache
+
+    @staticmethod
+    def _shared(params) -> Dict[str, Any]:
+        """The shared block's params under the dense block's keys."""
+        s = params["shared_attn"]
+        return {"attn": s["attn"], "mlp": s["mlp"], "ln1": s["ln"],
+                "ln2": s["ln2"]}
+
+    def _mamba_block(self, x, blk, state=None):
+        out, st = BL.mamba2_mix(rms_norm(x, blk["ln"], self.cfg.norm_eps),
+                                blk["m"], self.cfg, state=state)
+        return x + out, st
+
+    def _train_mamba(self, x, blk):
+        return self._mamba_block(x, blk)[0]
+
+    def forward(self, params, tokens) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``; differentiable
+        as :meth:`LM.forward` is. Under remat "full" each group (the shared
+        block and its Mamba2 blocks) and each remainder block is one
+        checkpoint, as in the reference."""
+        cfg = self.cfg
+        if cfg.remat not in ("full", "none"):
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} is not ported yet (it comes with the "
+                f"data-parallel training slice); use 'full' or 'none'")
+        G, E, R = self._layout()
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device).expand(B, S)
+        rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        shared = self._shared(params)
+
+        def group(x, gp):
+            x = self._dense_block(x, shared, rope)[0]
+            for blk in _layers(gp, E):
+                x = self._train_mamba(x, blk)
+            return x
+
+        steps = [(group, gp) for gp in _layers(params["groups"], G)]
+        if R:
+            steps += [(self._train_mamba, blk)
+                      for blk in _layers(params["rem"], R)]
+        for fn, p in steps:
+            x = checkpoint(fn, x, p, use_reentrant=False) \
+                if cfg.remat == "full" else fn(x, p)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x)
+
+    def prefill(self, params, tokens, max_len: Optional[int] = None,
+                last_pos=None):
+        """Run the prompt (B, S) and build the decode cache: each group's
+        K/V, each Mamba2 block's conv rows and final SSM state. Returns
+        (logits (B, 1, V), cache); ``last_pos`` as in :meth:`LM.prefill`.
+        A prompt shorter than the conv's 3 rows of history is refused."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        max_len = max_len or S + 1
+        if max_len < S:
+            raise ValueError(f"max_len={max_len} is shorter than the "
+                             f"prompt ({S})")
+        if S < BL.CONV_K - 1:
+            raise ValueError(
+                f"a prompt of {S} tokens leaves the Mamba2 blocks no conv "
+                f"state: the hybrid family prefills {BL.CONV_K - 1} tokens "
+                f"or more")
+        G, E, R = self._layout()
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device).expand(B, S)
+        rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        cache = self.init_cache(B, max_len)
+        shared = self._shared(params)
+        for g in range(G):
+            x, (k, v) = self._dense_block(x, shared, rope)
+            cache["attn_k"][g, :, :S] = k
+            cache["attn_v"][g, :, :S] = v
+            group = _layer(params["groups"], g)
+            for j in range(E):
+                x, st = self._mamba_block(x, _layer(group, j))
+                cache["conv"][g, j] = st["conv"]
+                cache["ssm"][g, j] = st["ssm"]
+        for r in range(R):
+            x, st = self._mamba_block(x, _layer(params["rem"], r))
+            cache["rem_conv"][r] = st["conv"]
+            cache["rem_ssm"][r] = st["ssm"]
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if last_pos is None:
+            sel = x[:, -1:]
+            cache["len"] = torch.tensor(S, dtype=torch.int32,
+                                        device=self.device)
+        else:
+            last_pos = torch.as_tensor(last_pos, device=self.device).long()
+            sel = x[torch.arange(B, device=self.device), last_pos][:, None]
+            cache["len"] = (last_pos + 1).to(torch.int32)
+        return self._logits(params, sel), cache
+
+    def decode_step(self, params, cache, tokens):
+        """tokens (B, 1) -> (logits (B, 1, V), cache), the cache updated in
+        place and returned with ``len + 1``. ``cache["len"]`` must be a
+        scalar: the recurrent state has no per-row append position."""
+        cfg = self.cfg
+        ln = cache["len"]
+        if ln.dim() == 1:
+            raise ValueError(
+                f"per-sequence cache lengths are not supported for family "
+                f"{cfg.family!r} (recurrent/grouped state has no per-row "
+                f"append position)")
+        x = self._embed(params, tokens)
+        B = x.shape[0]
+        rope = rope_cos_sin(ln.expand(B, 1), cfg.hd, cfg.rope_theta)
+        at, attend = A.decode_rows(ln, B, cache["attn_k"].shape[2])
+        G, E, R = self._layout()
+        shared = self._shared(params)
+        for g in range(G):
+            x, _ = self._dense_block(
+                x, shared, rope,
+                cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g],
+                       "at": at, "attend": attend})
+            group = _layer(params["groups"], g)
+            for j in range(E):
+                x = self._decode_mamba(x, _layer(group, j),
+                                       cache["conv"][g, j], cache["ssm"][g, j])
+        for r in range(R):
+            x = self._decode_mamba(x, _layer(params["rem"], r),
+                                   cache["rem_conv"][r], cache["rem_ssm"][r])
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x), {**cache, "len": ln + 1}
+
+    def _decode_mamba(self, x, blk, conv, ssm):
+        """One Mamba2 block of a decode step; its conv rows and SSM state
+        are written back into the cache slices ``conv`` and ``ssm``."""
+        x, st = self._mamba_block(x, blk, state={"conv": conv, "ssm": ssm})
+        conv.copy_(st["conv"])
+        ssm.copy_(st["ssm"])
+        return x
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
-    return LM(cfg, device=device)
+    """The port's LM class for ``cfg.family`` (dense or hybrid)."""
+    classes = {cls.family: cls for cls in (LM, HybridLM)}
+    if cfg.family not in classes:
+        raise ValueError(f"the port serves the dense and hybrid families, "
+                         f"not {cfg.family!r}")
+    return classes[cfg.family](cfg, device=device)

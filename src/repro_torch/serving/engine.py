@@ -60,6 +60,11 @@ class ServeEngine:
                              f"!= ({B},)")
         if (prompt_lens < 1).any() or (prompt_lens > S).any():
             raise ValueError("prompt_lens must be in [1, S]")
+        if self.model.cfg.family != "dense":
+            raise ValueError(
+                f"ragged prompts are not supported for family "
+                f"{self.model.cfg.family!r} (recurrent state cannot mask "
+                f"pad positions)")
         return self._prefill(prompts, last_pos=prompt_lens - 1)
 
     def generate(self, prompts: np.ndarray, n_tokens: int,

@@ -31,6 +31,10 @@ class TPServeEngine:
 
     def __init__(self, model: LM, params, world=None, max_len: int = 256,
                  local: Optional[ServeEngine] = None, device="cuda"):
+        if model.cfg.family != "dense":
+            raise ValueError(
+                f"tensor-parallel serving requires a KV-cache family "
+                f"(dense), not {model.cfg.family!r}")
         if world is not None:
             raise NotImplementedError(
                 "serving over a JCCL world needs the port of the fabric "

@@ -1,6 +1,6 @@
-"""The port stands alone: importing it, serving and taking a train step on
-the CPU loads neither ``jax`` nor any module of ``repro``; and it never
-moves to the CPU on its own."""
+"""The port stands alone: importing it, serving (dense and hybrid) and
+taking a train step on the CPU loads neither ``jax`` nor any module of
+``repro``; and it never moves to the CPU on its own."""
 
 import os
 import subprocess
@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import torch
 import repro_torch
-from repro_torch.configs import gpt2_124m, yi_6b
+from repro_torch.configs import gpt2_124m, yi_6b, zamba2_1p2b
 from repro_torch.launch import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -43,6 +43,12 @@ _, state, metrics = make_train_step(tmodel, opt)(
     tparams, adamw_init(tparams, opt),
     {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)})
 assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+zcfg = zamba2_1p2b.smoke_config(n_layers=3)
+zmodel = build_model(zcfg, device="cpu")
+zeng = ServeEngine(zmodel, zmodel.init(torch.Generator().manual_seed(0)),
+                   max_len=16, device="cpu")
+out = zeng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
+assert out.shape == (2, 7), out.shape
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
