@@ -18,13 +18,17 @@ and read just after, that each went through the kernels:
   versions;
 * serving zamba2-1.2b through ``ServeEngine.generate``: a prefill of
   exactly 38 SSD-scan (B4) and 6 flash-attention launches, decode steps of
-  exactly 6 decode-attention launches and no scan, 0 plain launches.
+  exactly 6 decode-attention launches and no scan, 0 plain launches;
+* serving rwkv6-3b through ``ServeEngine.generate``: a prefill of exactly
+  32 RWKV6-scan (B5) launches, decode steps of none (the one-token
+  recurrence is plain float32 work), 0 plain launches.
 
 It holds the kernel path against the plain path at full width (logits
-while serving, loss and gradients while training; for zamba2 the whole
-path in float32, each Mamba2 block in bf16, and the bf16 path's drift
-printed), the float32 smoke models' card runs against their CPU runs,
-times the kernels, the serving steps and the train step, and prints:
+while serving, loss and gradients while training; for zamba2 and rwkv6
+the whole path in float32, each scan block in bf16, and the bf16 path's
+drift printed, for rwkv6 beside a baseline), the float32 smoke models'
+card runs against their CPU runs, times the kernels, the serving steps and
+the train step, and prints:
 
 * a ``{"serving": ...}`` line: prefill ms, decode ms per step, tokens/s,
   peak memory;
@@ -32,6 +36,7 @@ times the kernels, the serving steps and the train step, and prints:
   idle share from ``torch.profiler``, peak memory, the losses;
 * a ``{"zamba2": ...}`` line: prefill ms, decode ms per step, tokens/s,
   device-busy ms and idle share, peak memory, the full-width readings;
+* a ``{"rwkv6": ...}`` line: the same for rwkv6-3b;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
@@ -61,12 +66,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import gpt2_124m, yi_6b, zamba2_1p2b  # noqa: E402
+from repro_torch.configs import (gpt2_124m, rwkv6_3b, yi_6b,  # noqa: E402
+                                 zamba2_1p2b)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as FR  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as RO  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as RR  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as SO  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as SR  # noqa: E402
 from repro_torch.launch import make_train_step, value_and_grad  # noqa: E402
@@ -754,8 +762,9 @@ def check_refusals(device):
 def time_kernels(device, errs, launches):
     """The kernels' line: each kernel, its plain version and the library
     call timed at the main paths' shapes (B1 and B3 serving yi-6b, B2a and
-    B2b training, B4 serving zamba2), with the card's bound. ``launches`` holds each path's
-    counts; ``launches`` in the line is their sum."""
+    B2b training, B4 serving zamba2, B5 serving rwkv6-3b), with the card's
+    bound. ``launches`` holds each path's counts; ``launches`` in the line
+    is their sum."""
     gen = torch.Generator(device=device).manual_seed(1)
     bf = torch.bfloat16
     out = []
@@ -896,6 +905,37 @@ def time_kernels(device, errs, launches):
                         "67 TFLOP/s)",
                 "shape": f"B={B} T={T} H={H} P={P} N={N} bf16, B and C "
                          f"strided, final state written"})
+
+    # B5 at a time mix of rwkv6-3b's prefill: (4, 512), 40 heads of 64
+    B, T, H, N = 4, 512, 40, 64
+    sets = [rwkv_inputs(gen, B, T, H, bf, "model", device) for _ in range(4)]
+    ms = time_ms(lambda *a: RO.rwkv6_scan(*a), sets)
+    plain = time_ms_unqueued(lambda *a: RR.rwkv6_scan_ref(*a), sets)
+    elems = B * T * H * N
+    # r, k, v in bf16 and w in float32 read; u read; y and the state written
+    nbytes = 2 * 3 * elems + 4 * elems + 4 * H * N + 4 * elems \
+        + 4 * B * H * N * N
+    # per step and (b, h), on the (N, N) state: k v^T, u o kv, S + that,
+    # r^T times it (a multiply and an add), w o S, + kv
+    ops = 7 * N * N * B * T * H
+    b_ms, b_by = bound(nbytes, ops)
+    out.append({"name": "rwkv6_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/rwkv6_scan/csrc/"
+                          "rwkv6_scan.cu",
+                "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:22",
+                "launches": sum(n["rwkv6_scan"] for n in launches.values()),
+                "launches_by_path": {p: n["rwkv6_scan"]
+                                     for p, n in launches.items()},
+                "max_abs_err": errs["rwkv6_scan"], "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,
+                "note": "no single PyTorch call computes the scan; the "
+                        "operations are counted at the bf16 rate, while the "
+                        "recurrence runs in float32 on the CUDA cores "
+                        f"({ops / 67e12 * 1e3:.4f} ms at the card's 67 "
+                        "TFLOP/s)",
+                "shape": f"B={B} T={T} H={H} N={N} bf16 r/k/v, float32 w "
+                         f"and u, final state written"})
     return out
 
 
@@ -906,13 +946,13 @@ def time_kernels(device, errs, launches):
 
 # every kernel launcher and plain version, each with its launch counter
 COUNTED = (FO.flash_attention, FO.flash_bwd_dq, FO.flash_bwd_dkv,
-           DO.decode_attention, SO.ssd_scan, FR.flash_attention_ref,
-           FR.flash_attention_bwd_ref, DR.decode_attention_ref,
-           SR.ssd_scan_ref)
+           DO.decode_attention, SO.ssd_scan, RO.rwkv6_scan,
+           FR.flash_attention_ref, FR.flash_attention_bwd_ref,
+           DR.decode_attention_ref, SR.ssd_scan_ref, RR.rwkv6_scan_ref)
 KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "rwkv6_scan")
 PLAIN = ("flash_attention_ref", "flash_attention_bwd_ref",
-         "decode_attention_ref", "ssd_scan_ref")
+         "decode_attention_ref", "ssd_scan_ref", "rwkv6_scan_ref")
 
 
 def zero_counts() -> None:
@@ -1302,7 +1342,8 @@ def train(device, card):
     step = make_train_step(model, opt_cfg)
     state = adamw_init(params, opt_cfg)
     L = cfg.n_layers
-    want = {n: 0 for n in PLAIN + ("decode_attention", "ssd_scan")}
+    want = {n: 0 for n in PLAIN + ("decode_attention", "ssd_scan",
+                                   "rwkv6_scan")}
     want.update(flash_attention=2 * L, flash_bwd_dq=L, flash_bwd_dkv=L)
     losses, step_ms, per_step = [], [], []
     torch.cuda.synchronize()
@@ -1616,6 +1657,473 @@ def zamba2(device, card):
         "float32_path": f32, "bf16": bf16, "profile": profile}}
 
 
+# ---------------------------------------------------------------------------
+# B5 (the RWKV6 scan) against its plain version
+# ---------------------------------------------------------------------------
+
+
+# B5 is held to its plain scan, for y and for the final state, by B4's
+# limits and check (SSD_REL_L2, SSD_TOL, ssd_agreement), taken before B5's
+# first run: both compute in float32 from the same inputs (bf16 r, k and v
+# are cast first), so they differ only by the order of the sums. The same
+# limits must reject each planted fault of the plain scan (RWKV_FAULTS) in
+# every case where it changes the result.
+# rwkv6-3b at full width, kernel path against plain path: zamba2's limits,
+# set before the first run. (a) float32, the whole path: the relative L2
+# error of the prefill logits and of each cache leaf, and of teacher-forced
+# decode logits after a 500-token prompt against forward's; (b) bf16, each
+# of the 32 time mixes on the plain run's input: the relative L2 error of
+# each batch row of its output and of its final state. (c), the bf16 whole
+# path, is printed beside a baseline and not gated.
+RWKV_F32_REL_L2 = 5e-3
+RWKV_LAYER_REL_L2 = 1e-3
+RWKV_RAGGED = 500     # a prompt length that is not a whole 64-step chunk
+
+RWKV_FAULTS = ("bonus u left out", "w applied after the kv add",
+               "output read after the update", "final state not written",
+               "state zero-padded to a whole chunk")
+
+
+def plain_rwkv(r, k, v, w, u, fault: str):
+    """The plain scan written out again with one planted ``fault`` (of
+    RWKV_FAULTS): (y, final state), float32. Only the planted faults use
+    it. The zero-padded state is what a scan padded with w = 0 steps to a
+    whole 64-step chunk ends with."""
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    if fault == "bonus u left out":
+        u = torch.zeros_like(u)
+    B, T, H, N = r.shape
+    S = torch.zeros((B, H, N, N), device=r.device)
+    ys = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        before = S
+        if fault == "w applied after the kv add":
+            S = w[:, t, :, :, None] * (S + kv)
+        else:
+            S = w[:, t, :, :, None] * S + kv
+        read = S if fault == "output read after the update" else before
+        ys.append(torch.einsum("bhn,bhnm->bhm", r[:, t],
+                               read + u[None, :, :, None] * kv))
+    if fault == "final state not written" \
+            or (fault == "state zero-padded to a whole chunk" and T % 64):
+        S = torch.zeros_like(S)
+    return torch.stack(ys, dim=1), S
+
+
+def rwkv_faults(T: int):
+    """The faults that change the scan's result at T steps: the padded
+    chunk only where T is not a multiple of 64."""
+    return [f for f in RWKV_FAULTS
+            if T % 64 or f != "state zero-padded to a whole chunk"]
+
+
+def rwkv_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, T, H, dtype, layout): "model" hands the inputs over as the
+    # time mix does; "strided" reads every input through other strides
+    return [("rwkv6-3b prefill", 4, 512, 40, bf, "model"),
+            ("rwkv6-3b prefill", 4, 512, 40, f32, "model"),
+            ("rwkv6-3b prefill", 4, 512, 40, bf, "strided"),
+            ("one step", 2, 1, 8, bf, "model"),
+            ("one step", 2, 1, 8, f32, "strided"),
+            ("one chunk less a step", 2, 63, 8, bf, "strided"),
+            ("one chunk less a step", 2, 63, 8, f32, "model"),
+            ("one chunk", 2, 64, 8, f32, "model"),
+            ("one chunk", 2, 64, 8, bf, "strided"),
+            ("one chunk and a step", 2, 65, 8, bf, "model"),
+            ("one chunk and a step", 2, 65, 8, f32, "strided"),
+            ("a ragged tail", 3, 100, 8, bf, "model"),
+            ("a ragged tail", 3, 100, 8, f32, "strided"),
+            ("smoke width", 2, 130, 2, f32, "model"),
+            ("smoke width", 2, 130, 2, bf, "strided")]
+
+
+def rwkv_inputs(gen, B, T, H, dtype, layout, device, N=64):
+    """(r, k, v, w, u) as the time mix makes them: r, k and v of unit
+    scale in ``dtype``; w = exp(-exp(-0.5 + z)) and u of scale H^-1/2 in
+    float32. "model": each a contiguous (B, T, H, N) tensor, as the time
+    mix's projections give them. "strided": r, k and v slices of one (B, T,
+    3, H, 2N) tensor (k every other element), w a transposed (B, H, T, N)
+    tensor and u a transposed (N, H) one."""
+    if layout == "model":
+        r, k, v = (torch.randn(B, T, H, N, generator=gen, device=device)
+                   .to(dtype) for _ in range(3))
+        z = torch.randn(B, T, H, N, generator=gen, device=device)
+        u = torch.randn(H, N, generator=gen, device=device)
+    else:
+        rkv = torch.randn(B, T, 3, H, 2 * N, generator=gen,
+                          device=device).to(dtype)
+        r, k, v = rkv[:, :, 0, :, :N], rkv[:, :, 1, :, ::2], \
+            rkv[:, :, 2, :, N:]
+        z = torch.randn(B, H, T, N, generator=gen,
+                        device=device).transpose(1, 2)
+        u = torch.randn(N, H, generator=gen, device=device).t()
+    return r, k, v, torch.exp(-torch.exp(z - 0.5)), u * H ** -0.5
+
+
+def check_rwkv(device):
+    """B5 against the plain scan in every case, y and the final state; the
+    same limits must reject each planted fault that changes the result.
+    Returns the max abs error at the bf16 rwkv6-3b prefill case."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    err = 0.0
+    for label, B, T, H, dt_, layout in rwkv_cases():
+        ins = rwkv_inputs(gen, B, T, H, dt_, layout, device)
+        y, S = RO.rwkv6_scan(*ins)
+        torch.cuda.synchronize()
+        y_ref, S_ref = RR.rwkv6_scan_ref(*ins)
+        name = str(dt_).replace("torch.", "")
+        shape = f"B={B} T={T} H={H} N=64 {name} {layout}"
+        ry, rs = ssd_agreement(y, y_ref), ssd_agreement(S, S_ref)
+        print(f"rwkv6_scan {label} {shape}: y max|d|={ry[1]:.3g} row rel "
+              f"L2={ry[2]:.3g} elem={ry[3]:.3g}; state max|d|={rs[1]:.3g} "
+              f"row rel L2={rs[2]:.3g} elem={rs[3]:.3g} "
+              f"{'ok' if ry[0] and rs[0] else 'MISMATCH'}")
+        check(ry[0] and rs[0], f"rwkv6_scan disagrees with its plain "
+                               f"version ({label}, {shape})")
+        for fault in rwkv_faults(T):
+            fy, fs = plain_rwkv(*ins, fault)
+            fy, fs = ssd_agreement(fy, y_ref), ssd_agreement(fs, S_ref)
+            caught = not (fy[0] and fs[0])
+            print(f"  planted fault '{fault}': row rel L2 y/state = "
+                  f"{fy[2]:.3g}/{fs[2]:.3g}, elem {fy[3]:.3g}/{fs[3]:.3g} "
+                  f"{'rejected' if caught else 'NOT REJECTED'}")
+            check(caught, f"the rwkv6_scan limits pass a planted fault "
+                          f"({fault}, {label}, {shape})")
+        if label == "rwkv6-3b prefill" and dt_ == torch.bfloat16 \
+                and layout == "model":
+            err = max(ry[1], rs[1])
+    return err
+
+
+def check_rwkv_grad(device):
+    """RWKV6Scan (B5 forward, autograd of the plain scan backward) against
+    autograd of the plain scan: all five inputs' gradients through y and
+    the final state, at the smoke width, r, k and v in float32 and in
+    bf16."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    for dt_ in (torch.float32, torch.bfloat16):
+        ins = rwkv_inputs(gen, 2, 130, 2, dt_, "strided", device)
+        gy = torch.randn(2, 130, 2, 64, generator=gen, device=device)
+        gS = torch.randn(2, 2, 64, 64, generator=gen, device=device)
+        grads = {}
+        for route, fn in (("kernel", RO.rwkv6_scan),
+                          ("plain", RR.rwkv6_scan_ref)):
+            leaves = [t.detach().requires_grad_() for t in ins]
+            zero_counts()
+            y, S = fn(*leaves)
+            ((y * gy).sum() + (S * gS).sum()).backward()
+            torch.cuda.synchronize()
+            grads[route] = ([t.grad for t in leaves], read_counts())
+        (gk, nk), (gp, _) = grads["kernel"], grads["plain"]
+        rel = max(rel_l2(a, b) for a, b in zip(gk, gp))
+        name = str(dt_).replace("torch.", "")
+        print(f"rwkv6_scan gradient (RWKV6Scan vs autograd of the plain "
+              f"scan, B=2 T=130 H=2 N=64 {name} r k v, strided): worst "
+              f"input's rel L2 {rel:.3g} (limit {SSD_REL_L2}); launches "
+              f"{nk}")
+        check(nk == dict({n: 0 for n in KERNELS + PLAIN}, rwkv6_scan=1,
+                         rwkv6_scan_ref=1),
+              f"RWKV6Scan did not run B5 forward and the plain scan "
+              f"backward: {nk}")
+        check(rel <= SSD_REL_L2, "RWKV6Scan's gradient disagrees with the "
+                                  "plain")
+
+
+def check_rwkv_refusals(device):
+    """On the card the B5 wrapper launches its kernel or raises: what the
+    kernel does not take is refused, and nothing falls back to the plain
+    scan."""
+    before = read_counts()
+
+    def ins(N=64, dtype=torch.float32):
+        t = torch.zeros(1, 8, 2, N, device=device)
+        return t.to(dtype), t.to(dtype), t.to(dtype), t + 0.5, t[0, 0]
+
+    for what, call, exc in (
+            ("rwkv6 scan N = 32", lambda: RO.rwkv6_scan(*ins(32)),
+             ValueError),
+            ("rwkv6 scan w on the CPU", lambda: RO.rwkv6_scan(
+                *ins()[:3], ins()[3].cpu(), ins()[4]), ValueError),
+            ("rwkv6 scan k float32, r and v bfloat16", lambda: RO.rwkv6_scan(
+                ins(dtype=torch.bfloat16)[0], ins()[1],
+                *ins(dtype=torch.bfloat16)[2:]), TypeError),
+            ("rwkv6 scan w bfloat16", lambda: RO.rwkv6_scan(
+                *ins()[:3], ins()[3].bfloat16(), ins()[4]), TypeError),
+            ("rwkv6 scan float16", lambda: RO.rwkv6_scan(
+                *ins(dtype=torch.float16)), TypeError)):
+        try:
+            call()
+        except exc as e:
+            print(f"refused on the card: {what}: {e}")
+        else:
+            die(f"the rwkv6_scan wrapper took {what} on the card")
+    check(read_counts() == before, "a refused call launched something")
+
+
+def small_rwkv_matches_cpu(device) -> None:
+    """rwkv6-3b's smoke width in float32: greedy tokens on the card (B5)
+    equal those on the CPU (the plain scan)."""
+    cfg = rwkv6_3b.smoke_config(dtype=torch.float32)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    prompts = np.random.RandomState(1).randint(1, cfg.vocab, (3, 16))
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", build_model(cfg, device))):
+        eng = ServeEngine(model, params, max_len=32, device=dev)
+        zero_counts()
+        out[dev] = eng.generate(prompts, 12)
+    n = read_counts()
+    check(np.array_equal(out["cuda"], out["cpu"]),
+          f"{cfg.name} smoke model: card and CPU tokens differ")
+    check(n == dict({k: 0 for k in KERNELS + PLAIN},
+                    rwkv6_scan=cfg.n_layers),
+          f"{cfg.name} smoke model on the card: launches {n}")
+    print(f"{cfg.name} smoke model f32: card tokens equal CPU tokens; card "
+          f"launches {n}")
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-3b serving at full width
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def swapped(name: str, fn):
+    """``BL.<name>`` (the blocks' scan or time mix) replaced by ``fn``."""
+    saved = getattr(BL, name)
+    setattr(BL, name, fn)
+    try:
+        yield
+    finally:
+        setattr(BL, name, saved)
+
+
+def fault_route(fault: str):
+    return lambda *a: plain_rwkv(*a, fault)
+
+
+def recorder(store: list):
+    """A time mix that appends its (normed input, params) to ``store``."""
+    mix = BL.rwkv6_time_mix
+
+    def record(x, p, cfg, state=None):
+        store.append((x, p))
+        return mix(x, p, cfg, state=state)
+    return record
+
+
+def rwkv6_f32_path(model, params, prompts, feed) -> dict:
+    """(a) The whole path in float32 at full width: the kernel prefill's
+    logits and every cache leaf against the plain prefill, and
+    teacher-forced decode after a 500-token prompt against forward. Each
+    planted fault of the state must be rejected by one of the two."""
+    L = model.cfg.n_layers
+    kern_in, plain_in = [], []
+    zero_counts()
+    with swapped("rwkv6_time_mix", recorder(kern_in)):
+        kern = model.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    n = read_counts()
+    check(n == dict({k: 0 for k in KERNELS + PLAIN}, rwkv6_scan=L),
+          f"float32 prefill launches {n}")
+    with swapped("rwkv6_scan", RR.rwkv6_scan_ref), \
+            swapped("rwkv6_time_mix", recorder(plain_in)):
+        plain = model.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    got = prefill_reading(kern, plain)
+    drift = [rel_l2(a, b) for (a, _), (b, _) in zip(kern_in, plain_in)]
+    del kern, kern_in, plain_in
+    ragged = prompts[:, :RWKV_RAGGED]
+    dvf = decode_vs_forward(model, params, ragged, feed)
+    worst = max(max(got.values()), dvf)
+    print(f"rwkv6 (a) float32 whole path, kernel vs plain prefill: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in got.items())
+          + f"; decode after a {RWKV_RAGGED}-token prompt vs forward "
+          f"{dvf:.3g}; worst {worst:.3g} (limit {RWKV_F32_REL_L2}); drift of "
+          f"each time mix's input: " + " ".join(f"{d:.2g}" for d in drift))
+    check(worst <= RWKV_F32_REL_L2, "float32 rwkv6 kernel path disagrees")
+    faults = {}
+    for fault in ("final state not written",
+                  "state zero-padded to a whole chunk"):
+        with swapped("rwkv6_scan", fault_route(fault)):
+            pre = max(prefill_reading(
+                model.prefill(params, prompts, max_len=SERVE_MAX_LEN),
+                plain).values())
+            dec = decode_vs_forward(model, params, ragged, feed)
+        faults[fault] = {"prefill": pre, "decode_vs_forward": dec}
+        print(f"  planted fault '{fault}': prefill worst {pre:.3g}, decode "
+              f"after {RWKV_RAGGED} vs forward {dec:.3g}; rejected: "
+              f"{max(pre, dec) > RWKV_F32_REL_L2}")
+        check(max(pre, dec) > RWKV_F32_REL_L2,
+              f"the float32 rwkv6 limit passes a planted fault ({fault})")
+    return {"prefill": got, "decode_vs_forward": dvf, "input_drift": drift,
+            "faults": faults}
+
+
+def rwkv6_bf16_layers(engine, prompts) -> dict:
+    """(b) and (c) in bf16. (b): each of the 32 time mixes on the plain
+    run's input, kernel vs plain, to one limit that every planted scan
+    fault that can show at T = 512 must pass at every block. (c): the whole
+    prefill's logits, kernel vs plain, with the drift of each time mix's
+    input, not gated; beside it the plain path against itself with each
+    scan output multiplied by (1 + eps z), z a fixed-seed standard normal
+    and eps the worst reading of (b)."""
+    cfg = engine.model.cfg
+    plain_in = []
+    with swapped("rwkv6_scan", RR.rwkv6_scan_ref), \
+            swapped("rwkv6_time_mix", recorder(plain_in)):
+        lp, _ = engine._prefill(prompts)
+
+    def block(x, p, route):
+        with swapped("rwkv6_scan", route):
+            out, st = BL.rwkv6_time_mix(x, p, cfg)
+        return out, st["wkv"]
+
+    def reading(got, ref):
+        return max(row_rel_l2(got[0], ref[0]), row_rel_l2(got[1], ref[1]))
+
+    per_layer = []
+    faults = {f: [] for f in rwkv_faults(prompts.shape[1])}
+    for x, p in plain_in:
+        ref = block(x, p, RR.rwkv6_scan_ref)
+        per_layer.append(reading(block(x, p, RO.rwkv6_scan), ref))
+        for fault, rs in faults.items():
+            rs.append(reading(block(x, p, fault_route(fault)), ref))
+    worst = max(per_layer)
+    print(f"rwkv6 (b) bf16 block by block, kernel vs plain (time mix output "
+          f"and final state, worst batch row): worst {worst:.3g} at block "
+          f"{int(np.argmax(per_layer))} (limit {RWKV_LAYER_REL_L2}); "
+          + " ".join(f"{r:.2g}" for r in per_layer))
+    check(len(per_layer) == cfg.n_layers, f"{len(per_layer)} blocks ran")
+    check(worst <= RWKV_LAYER_REL_L2, "a bf16 time mix disagrees")
+    for fault, rs in faults.items():
+        print(f"  planted fault '{fault}': weakest block {min(rs):.3g}, "
+              f"strongest {max(rs):.3g}; rejected at every block: "
+              f"{min(rs) > RWKV_LAYER_REL_L2}")
+        check(min(rs) > RWKV_LAYER_REL_L2, f"the bf16 block limit passes a "
+                                           f"planted fault ({fault})")
+
+    kern_in, pert_in = [], []
+    with swapped("rwkv6_time_mix", recorder(kern_in)):
+        lk, _ = engine._prefill(prompts)
+    gen = torch.Generator(device=lp.device).manual_seed(7)
+
+    def perturbed(*a):
+        y, S = RR.rwkv6_scan_ref(*a)
+        z = torch.randn(y.shape, generator=gen, device=y.device)
+        return y * (1 + worst * z), S
+
+    with swapped("rwkv6_scan", perturbed), \
+            swapped("rwkv6_time_mix", recorder(pert_in)):
+        lq, _ = engine._prefill(prompts)
+    whole, base = rel_l2(lk, lp), rel_l2(lq, lp)
+    drift = [rel_l2(a, b) for (a, _), (b, _) in zip(kern_in, plain_in)]
+    base_drift = [rel_l2(a, b) for (a, _), (b, _) in zip(pert_in, plain_in)]
+    print(f"rwkv6 (c) bf16 whole path, prefill logits rel L2 against the "
+          f"plain path (not gated): kernel {whole:.3g}; baseline, the plain "
+          f"path with each scan output times (1 + {worst:.3g} z), "
+          f"{base:.3g}")
+    print("  drift of each time mix's input, kernel / baseline: "
+          + " ".join(f"{a:.2g}/{b:.2g}" for a, b in zip(drift, base_drift)))
+    return {"layer_worst_rel_l2": worst,
+            "layer_rel_l2": per_layer,
+            "faults_weakest_block": {f: min(rs) for f, rs in faults.items()},
+            "whole_path_logits_rel_l2": whole,
+            "baseline_eps": worst, "baseline_logits_rel_l2": base,
+            "input_drift": drift, "baseline_input_drift": base_drift}
+
+
+def rwkv6(device, card):
+    """rwkv6-3b at full width with random weights: (a) the float32 whole
+    path, then the bf16 ServeEngine: generate, the launches of a prefill
+    and of a decode step, (b) and (c), and the step times."""
+    cfg = rwkv6_3b.config()
+    L = cfg.n_layers
+    rng = np.random.RandomState(4)
+    prompts = rng.randint(1, cfg.vocab, size=(4, 512)).astype(np.int32)
+    feed = torch.as_tensor(rng.randint(1, cfg.vocab, size=(4, 4)),
+                           device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model32 = build_model(rwkv6_3b.config(dtype=torch.float32),
+                          device=device)
+    params = model32.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"setup: rwkv6-3b ({cfg.param_count() / 1e9:.3f} B params) "
+          f"initialised in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        f32 = rwkv6_f32_path(model32, params, prompts, feed)
+    model = build_model(cfg, device=device)
+    engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN, device=device)
+    del params, model32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, N_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    n_gen = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict({k: 0 for k in KERNELS + PLAIN}, rwkv6_scan=L)
+    print(f"rwkv6 generate launches: {n_gen}")
+    check(n_gen == want, f"rwkv6 generate: launches {n_gen}, want {want}")
+    check(toks.shape == (4, 512 + N_NEW)
+          and np.array_equal(toks[:, :512], prompts)
+          and ((toks[:, 512:] >= 0) & (toks[:, 512:] < cfg.vocab)).all(),
+          f"rwkv6 generate tokens {toks.shape}")
+    zero_counts()
+    logits, cache = engine._prefill(prompts)
+    n_pre = read_counts()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    zero_counts()
+    logits, cache = engine._decode(cache, tok)
+    n_dec = read_counts()
+    print(f"rwkv6 prefill launches {n_pre}; decode step launches {n_dec}")
+    check(n_pre == want, f"rwkv6 prefill: launches {n_pre}")
+    check(n_dec == dict(want, rwkv6_scan=0),
+          f"rwkv6 decode step: launches {n_dec}")
+    check(bool(torch.isfinite(logits).all()), "non-finite rwkv6 logits")
+
+    with torch.no_grad():
+        bf16 = rwkv6_bf16_layers(engine, prompts)
+
+    torch.cuda.synchronize()
+    prefill_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, cache = engine._prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps = 16
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = engine._decode(cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
+    return {"generate": n_gen}, {"rwkv6": {
+        "model": "rwkv6-3b (32 blocks, d=2560, 40 heads of 64, d_ff=8960, "
+                 "vocab 65536, random bf16 weights)",
+        "card": card,
+        "prefill_ms": min(prefill_ms), "prefill_ms_runs": prefill_ms,
+        "prefill_shape": "B=4 S=512",
+        "decode_ms_per_step": decode_ms, "decode_batch": 4,
+        "generate_s": t_gen, "generate_tokens_per_s": 4 * N_NEW / t_gen,
+        "decode_tokens_per_s": 4 / (decode_ms / 1e3),
+        "peak_memory_gb": peak_gb, "peak_memory_of": "generate",
+        "setup_peak_memory_gb": setup_peak_gb,
+        "launches": {"generate": n_gen, "prefill": n_pre,
+                     "decode_step": n_dec},
+        "float32_path": f32, "bf16": bf16, "profile": profile}}
+
+
 def matmul_shapes(prof, n: int):
     """The matmul kernels' device ms per step by (kernel, launching
     operator, its input shapes and dtypes), the largest 8."""
@@ -1658,7 +2166,7 @@ def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
         if any(w in low for w in ("flash_fwd", "dq_kernel", "dkv_kernel",
                                   "decode_partial", "decode_combine")):
             groups["attention kernels"] += t
-        elif "ssd_kernel" in low:
+        elif "ssd_kernel" in low or "rwkv6_kernel" in low:
             groups["scan kernel"] += t
         elif "nvjet" in low or "gemm" in low or "cutlass" in low:
             groups["matmul"] += t
@@ -1704,6 +2212,16 @@ def main() -> None:
     z_launches, zamba = zamba2(device, card)
     launches["zamba2 generate"] = z_launches["generate"]
     torch.cuda.empty_cache()
+    errs["rwkv6_scan"] = check_rwkv(device)
+    check_rwkv_grad(device)
+    check_rwkv_refusals(device)
+    small_rwkv_matches_cpu(device)
+    check(all(n["rwkv6_scan"] == 0 and n["rwkv6_scan_ref"] == 0
+              for n in launches.values()),
+          f"B5 or its plain version ran on an earlier path: {launches}")
+    r_launches, rwkv = rwkv6(device, card)
+    launches["rwkv6 generate"] = r_launches["generate"]
+    torch.cuda.empty_cache()
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
@@ -1713,6 +2231,7 @@ def main() -> None:
     print(json.dumps(serving))
     print(json.dumps(training))
     print(json.dumps(zamba))
+    print(json.dumps(rwkv))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

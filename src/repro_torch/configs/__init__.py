@@ -15,6 +15,7 @@ ARCH_MODULES = {
     # the paper's own evaluation model
     "gpt2-124m": "gpt2_124m",
     "zamba2-1.2b": "zamba2_1p2b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 

@@ -7,8 +7,10 @@ for the dense family, ``blocks/attn/{wk,wo,wq,wv}``, ``blocks/ln1``,
 ``blocks/ln2``, ``blocks/mlp/{w_down,w_gate,w_up}``, then ``embed``,
 ``final_norm`` and ``lm_head``; for the hybrid family ``embed``,
 ``final_norm``, ``groups/{ln,m/*}``, ``lm_head``, ``rem/{ln,m/*}`` and
-``shared_attn/{attn/*,ln,ln2,mlp/*}``. :func:`repro_torch.models.lm.flatten`
-walks the port's params in the same order.
+``shared_attn/{attn/*,ln,ln2,mlp/*}``; for the rwkv6 family
+``blocks/{ln1,ln2}``, ``blocks/tm/*``, ``embed``, ``final_norm`` and
+``lm_head``. :func:`repro_torch.models.lm.flatten` walks the port's params
+in the same order.
 """
 
 from __future__ import annotations
@@ -43,9 +45,25 @@ def _block_shapes(cfg: ModelConfig, lead: tuple, attn_mlp: bool) -> dict:
             "m/w_out": (*lead, d_in, D), "ln": (*lead, D)}
 
 
+def _rwkv6_shapes(cfg: ModelConfig, L: int) -> dict:
+    """Shapes of the rwkv6 blocks' leaves, stacked over ``L`` layers."""
+    D, F = cfg.d_model, cfg.d_ff
+    N = cfg.rwkv_head_dim
+    H = D // N
+    tm = {"wr": (D, H, N), "wk": (D, H, N), "wv": (D, H, N),
+          "wg": (D, H, N), "ww": (D, H, N), "wo": (H, N, D), "w0": (H, N),
+          "u": (H, N), "ln_x": (D,), "w_k": (D, F), "w_v": (F, D),
+          "w_r": (D, D)}
+    tm.update((f"mu_{n}", (D,)) for n in ("r", "k", "v", "g", "w", "ck",
+                                          "cr"))
+    shapes = {f"tm/{k}": (L, *v) for k, v in tm.items()}
+    shapes.update(ln1=(L, D), ln2=(L, D))
+    return shapes
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """'/'-joined path -> shape of every param leaf of ``cfg``'s family
-    (dense or hybrid)."""
+    (dense, hybrid or rwkv6)."""
     D, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
     shapes = {"embed": (V, D), "final_norm": (D,)}
     if not cfg.tie_embeddings:
@@ -58,6 +76,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             blocks["rem"] = _block_shapes(cfg, (n_rem,), False)
         blocks["shared_attn"] = dict(_block_shapes(cfg, (), True),
                                      ln=(D,), ln2=(D,))
+    elif cfg.family == "rwkv6":
+        blocks["blocks"] = _rwkv6_shapes(cfg, L)
     else:
         blocks["blocks"] = dict(_block_shapes(cfg, (L,), True),
                                 ln1=(L, D), ln2=(L, D))

@@ -30,6 +30,7 @@ SOURCES = {
     "flash_bwd": "flash_attention/csrc/flash_bwd.cu",
     "decode": "decode_attention/csrc/decode.cu",
     "ssd_scan": "ssm_scan/csrc/ssd_scan.cu",
+    "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
 }
 
 _lock = threading.Lock()

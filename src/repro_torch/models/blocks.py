@@ -1,5 +1,5 @@
-"""Layer blocks of the port: the gated MLP of the dense family and the
-Mamba2 (SSD) block of the hybrid family."""
+"""Layer blocks of the port: the gated MLP of the dense family, the Mamba2
+(SSD) block of the hybrid family and the RWKV6 time and channel mixes."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from ..kernels.ssm_scan.ops import ssd_scan
 from .common import ModelConfig, act_fn, init_dense
 
@@ -104,3 +105,97 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype,
                                  dtype=dtype),
             "dt_bias": full(H, 0.0), "a_log": full(H, 0.0),
             "d_skip": full(d_in, 1.0)}
+
+
+def _previous(x: torch.Tensor, state: Optional[dict], key: str):
+    """The token before each of x's (B, T, D): zero before the first one
+    (``state`` None) or the cached row ``state[key]`` (B, D)."""
+    if state is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return state[key][:, None, :]
+
+
+def _mix(x, x_prev, mu):
+    """Token-shift interpolation x mu + x_prev (1 - mu), mu in x's dtype."""
+    mu = mu.to(x.dtype)
+    return x * mu + x_prev * (1 - mu)
+
+
+def rwkv6_time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                   state: Optional[dict] = None) -> Tuple:
+    """RWKV6 time mix (no residual or norm; the caller adds them).
+
+    x (B, T, D) -> (out (B, T, D), {"shift": x's last row (B, D), "wkv":
+    the state (B, H, N, N) float32}). Each of r, k, v, the gate g and the
+    decay's offset dw projects its own token-shift mix of x; w =
+    exp(-exp(w0 + dw)) and the bonus u are float32. Prefill and training
+    (``state`` None): the scan over all T steps from a zero state
+    (:func:`rwkv6_scan`: the B5 kernel on a CUDA tensor), at any T. Decode
+    (``state`` holds "shift" and "wkv", T = 1): the one-token recurrence in
+    float32. Then silu(g) gates the scan's output, a per-head RMS norm
+    scales it by ``ln_x`` (as (H, N)) and ``wo`` projects it back. Weights
+    are cast to x's dtype where they are used."""
+    B, T, D = x.shape
+    N = cfg.rwkv_head_dim
+    H = D // N
+    x_prev = _previous(x, state, "shift")
+
+    def proj(name, wname):
+        w = p[wname].to(x.dtype).reshape(D, H * N)
+        return (_mix(x, x_prev, p[f"mu_{name}"]) @ w).reshape(B, T, H, N)
+
+    r, k, v = proj("r", "wr"), proj("k", "wk"), proj("v", "wv")
+    g = F.silu(proj("g", "wg"))
+    w = torch.exp(-torch.exp(p["w0"].float() + proj("w", "ww").float()))
+    u = p["u"].float()
+    if state is None:
+        out, S = rwkv6_scan(r, k, v, w, u)
+    else:
+        S = state["wkv"]
+        kv = k[:, 0, :, :, None].float() * v[:, 0, :, None, :].float()
+        out = torch.einsum("bhn,bhnm->bhm", r[:, 0].float(),
+                           S + u[None, :, :, None] * kv)[:, None]
+        S = w[:, 0, :, :, None] * S + kv
+    out = out.to(x.dtype) * g
+    outn = F.rms_norm(out.float(), (N,), eps=cfg.norm_eps) \
+        * p["ln_x"].float().reshape(H, N)
+    y = outn.to(x.dtype).reshape(B, T, D) @ p["wo"].to(x.dtype).reshape(D, D)
+    return y, {"shift": x[:, -1], "wkv": S}
+
+
+def rwkv6_channel_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                      state: Optional[dict] = None) -> Tuple:
+    """RWKV6 channel mix: sigmoid(xr W_r) * (relu(xk W_k)^2 W_v), xk and xr
+    token-shift mixes of x. Its weights live in the time mix's dict ``p``
+    (``w_k``, ``w_v``, ``w_r``, ``mu_ck``, ``mu_cr``), as in the reference.
+    Returns (out, {"shift_ffn": x's last row}); ``state`` (decode) holds the
+    previous token's row under "shift_ffn"."""
+    x_prev = _previous(x, state, "shift_ffn")
+    xk = _mix(x, x_prev, p["mu_ck"])
+    xr = _mix(x, x_prev, p["mu_cr"])
+    kx = torch.relu(xk @ p["w_k"].to(x.dtype)).square()
+    r = torch.sigmoid(xr @ p["w_r"].to(x.dtype))
+    return r * (kx @ p["w_v"].to(x.dtype)), {"shift_ffn": x[:, -1]}
+
+
+def init_rwkv6(gen: torch.Generator, cfg: ModelConfig, dtype,
+               lead: Tuple[int, ...]) -> dict:
+    """RWKV6 block weights (time and channel mix in one dict), stacked on
+    the leading axes ``lead``. Fan-ins and constants follow the reference:
+    each weight's first axis is its fan-in (D for the projections, H for
+    ``wo`` and ``u``, d_ff for ``w_v``); w0 -0.5, ln_x 1, every mu 0.5."""
+    D, f = cfg.d_model, cfg.d_ff
+    N = cfg.rwkv_head_dim
+    H = D // N
+    k = len(lead)
+    dense = lambda *shape: init_dense(gen, (*lead, *shape), in_axis=k,
+                                      dtype=dtype)
+    full = lambda shape, val: torch.full((*lead, *shape), val, dtype=dtype,
+                                         device=gen.device)
+    p = {"wr": dense(D, H, N), "wk": dense(D, H, N), "wv": dense(D, H, N),
+         "wg": dense(D, H, N), "ww": dense(D, H, N), "wo": dense(H, N, D),
+         "w0": full((H, N), -0.5), "u": dense(H, N), "ln_x": full((D,), 1.0),
+         "w_k": dense(D, f), "w_v": dense(f, D), "w_r": dense(D, D)}
+    for name in ("r", "k", "v", "g", "w", "ck", "cr"):
+        p[f"mu_{name}"] = full((D,), 0.5)
+    return p

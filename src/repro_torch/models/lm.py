@@ -1,5 +1,6 @@
-"""Decoder LM of the port: the dense family (:class:`LM`) and the zamba2
-hybrid family (:class:`HybridLM`), for training and serving.
+"""Decoder LM of the port: the dense family (:class:`LM`), the zamba2
+hybrid family (:class:`HybridLM`) and the rwkv6 family (:class:`RwkvLM`),
+for training and serving.
 
 Parameters are a nested dict of tensors with the reference's keys, the
 blocks stacked on a leading layer axis; the layer loop is plain Python over
@@ -23,10 +24,12 @@ from . import blocks as BL
 from .common import ModelConfig, init_dense, rms_norm, rope_cos_sin
 
 # the leaves the reference casts to the activation dtype where it uses
-# them; the others (RMSNorm scales, Mamba2's a_log) stay float32
+# them; the others (RMSNorm scales, Mamba2's a_log, RWKV6's w0, u and ln_x)
+# stay float32
 CAST_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "embed", "lm_head", "w_in", "w_out", "w_conv", "dt_bias",
-                "d_skip")
+                "d_skip", "wr", "wg", "ww", "w_k", "w_v", "w_r", "mu_r",
+                "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr")
 
 
 def flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -453,10 +456,137 @@ class HybridLM(LM):
         return x
 
 
+class RwkvLM(LM):
+    """RWKV6 ("Finch") LM: attention-free blocks, each a time mix (the RWKV6
+    scan) and a channel mix, each after its own RMSNorm.
+
+    The decode cache holds each block's token-shift rows (``shift`` and
+    ``shift_ffn``, the last normed input of each mix) and its float32
+    ``wkv`` state; a decode step updates them in place. The prefill keeps
+    the state after the prompt's last step at any prompt length, where the
+    reference's plain prefill pads the prompt to whole 64-step chunks and
+    so leaves ``wkv`` at zero unless the length is a multiple of 64
+    (ROADMAP C7): its decode continues what :meth:`forward` computes."""
+
+    family = "rwkv6"
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random params in ``cfg.param_dtype`` from ``gen``, with the
+        reference's shapes, keys and init scales."""
+        if gen.device != self.device:
+            raise ValueError(f"generator on {gen.device}, LM on {self.device}")
+        cfg = self.cfg
+        dt = cfg.param_dtype
+        D, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+        ones = lambda *shape: torch.ones(shape, dtype=dt, device=self.device)
+        params: Dict[str, Any] = {
+            "embed": init_dense(gen, (V, D), dtype=dt),
+            "final_norm": ones(D),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
+        params["blocks"] = {"tm": BL.init_rwkv6(gen, cfg, dt, (L,)),
+                            "ln1": ones(L, D), "ln2": ones(L, D)}
+        return params
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        """The recurrent state holds no sequence axis: ``max_len`` is not
+        used."""
+        cfg = self.cfg
+        L, B, D, N = cfg.n_layers, batch_size, cfg.d_model, cfg.rwkv_head_dim
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                 device=self.device)
+        return {"shift": zeros((L, B, D), cfg.dtype),
+                "shift_ffn": zeros((L, B, D), cfg.dtype),
+                "wkv": zeros((L, B, D // N, N, N), torch.float32),
+                "len": zeros((), torch.int32)}
+
+    def _rwkv_block(self, x, blk, state=None):
+        """One block: (x after it, its new state {"shift", "wkv",
+        "shift_ffn"})."""
+        cfg = self.cfg
+        h, st_t = BL.rwkv6_time_mix(rms_norm(x, blk["ln1"], cfg.norm_eps),
+                                    blk["tm"], cfg, state=state)
+        x = x + h
+        h, st_c = BL.rwkv6_channel_mix(rms_norm(x, blk["ln2"], cfg.norm_eps),
+                                       blk["tm"], cfg, state=state)
+        return x + h, {**st_t, **st_c}
+
+    def _train_rwkv(self, x, blk):
+        return self._rwkv_block(x, blk)[0]
+
+    def forward(self, params, tokens) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``; differentiable
+        as :meth:`LM.forward` is. Under remat "full" each block is one
+        checkpoint, as in the reference."""
+        cfg = self.cfg
+        if cfg.remat not in ("full", "none"):
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} is not ported yet (it comes with the "
+                f"data-parallel training slice); use 'full' or 'none'")
+        x = self._embed(params, tokens)
+        for blk in _layers(params["blocks"], cfg.n_layers):
+            x = checkpoint(self._train_rwkv, x, blk, use_reentrant=False) \
+                if cfg.remat == "full" else self._train_rwkv(x, blk)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x)
+
+    def prefill(self, params, tokens, max_len: Optional[int] = None,
+                last_pos=None):
+        """Run the prompt (B, S) and build the decode cache: each block's
+        token-shift rows and its state after step S. Returns (logits (B, 1,
+        V), cache); ``last_pos`` as in :meth:`LM.prefill`."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        max_len = max_len or S + 1
+        if max_len < S:
+            raise ValueError(f"max_len={max_len} is shorter than the "
+                             f"prompt ({S})")
+        cache = self.init_cache(B, max_len)
+        blocks = params["blocks"]
+        for i in range(cfg.n_layers):
+            x, st = self._rwkv_block(x, _layer(blocks, i))
+            for key in ("shift", "shift_ffn", "wkv"):
+                cache[key][i] = st[key]
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if last_pos is None:
+            sel = x[:, -1:]
+            cache["len"] = torch.tensor(S, dtype=torch.int32,
+                                        device=self.device)
+        else:
+            last_pos = torch.as_tensor(last_pos, device=self.device).long()
+            sel = x[torch.arange(B, device=self.device), last_pos][:, None]
+            cache["len"] = (last_pos + 1).to(torch.int32)
+        return self._logits(params, sel), cache
+
+    def decode_step(self, params, cache, tokens):
+        """tokens (B, 1) -> (logits (B, 1, V), cache), the cache updated in
+        place and returned with ``len + 1``. ``cache["len"]`` must be a
+        scalar: the recurrent state has no per-row append position."""
+        cfg = self.cfg
+        ln = cache["len"]
+        if ln.dim() == 1:
+            raise ValueError(
+                f"per-sequence cache lengths are not supported for family "
+                f"{cfg.family!r} (recurrent/grouped state has no per-row "
+                f"append position)")
+        x = self._embed(params, tokens)
+        blocks = params["blocks"]
+        for i in range(cfg.n_layers):
+            state = {key: cache[key][i] for key in ("shift", "shift_ffn",
+                                                    "wkv")}
+            x, st = self._rwkv_block(x, _layer(blocks, i), state=state)
+            for key, slot in state.items():
+                slot.copy_(st[key])
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x), {**cache, "len": ln + 1}
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
-    """The port's LM class for ``cfg.family`` (dense or hybrid)."""
-    classes = {cls.family: cls for cls in (LM, HybridLM)}
+    """The port's LM class for ``cfg.family`` (dense, hybrid or rwkv6)."""
+    classes = {cls.family: cls for cls in (LM, HybridLM, RwkvLM)}
     if cfg.family not in classes:
-        raise ValueError(f"the port serves the dense and hybrid families, "
-                         f"not {cfg.family!r}")
+        raise ValueError(f"the port serves the dense and hybrid families "
+                         f"and rwkv6, not {cfg.family!r}")
     return classes[cfg.family](cfg, device=device)

@@ -486,4 +486,4 @@ def test_recurrent_family_refusals(ref_params):
     with pytest.raises(ValueError, match="3 tokens or more"):
         tm.prefill(tp, prompts[:, :2], max_len=MAX_LEN)
     with pytest.raises(ValueError, match="dense and hybrid"):
-        t_build(t_zamba.smoke_config(family="rwkv6"), device="cpu")
+        t_build(t_zamba.smoke_config(family="moe"), device="cpu")

@@ -1,4 +1,4 @@
-"""The port stands alone: importing it, serving (dense and hybrid) and
+"""The port stands alone: importing it, serving (dense, hybrid and rwkv6) and
 taking a train step on the CPU loads neither ``jax`` nor any module of
 ``repro``; and it never moves to the CPU on its own."""
 
@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import torch
 import repro_torch
-from repro_torch.configs import gpt2_124m, yi_6b, zamba2_1p2b
+from repro_torch.configs import gpt2_124m, rwkv6_3b, yi_6b, zamba2_1p2b
 from repro_torch.launch import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -48,6 +48,12 @@ zmodel = build_model(zcfg, device="cpu")
 zeng = ServeEngine(zmodel, zmodel.init(torch.Generator().manual_seed(0)),
                    max_len=16, device="cpu")
 out = zeng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
+assert out.shape == (2, 7), out.shape
+rcfg = rwkv6_3b.smoke_config(n_layers=1)
+rmodel = build_model(rcfg, device="cpu")
+reng = ServeEngine(rmodel, rmodel.init(torch.Generator().manual_seed(0)),
+                   max_len=16, device="cpu")
+out = reng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
 assert out.shape == (2, 7), out.shape
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")

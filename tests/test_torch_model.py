@@ -89,7 +89,7 @@ def test_config_matches_reference_field_by_field(which):
 
 def test_config_registry_lists_only_ported_archs():
     with pytest.raises(KeyError, match="supports"):
-        t_configs.get_config("rwkv6-3b")
+        t_configs.get_config("llama4-maverick-400b-a17b")
 
 
 # ---------------------------------------------------------------------------
