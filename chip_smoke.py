@@ -41,6 +41,8 @@ the train step, and prints:
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
   inputs, and the card's least time for the same work (``bound_ms``);
+  flash attention's entry also lists all three of its main-path shapes
+  (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -97,7 +99,8 @@ BF16_OPS_PER_S = 989e12
 # body also rounds P to bf16 before P.V. As a whole: the relative L2 error
 # of each batch row, so that a fault in one sequence is not averaged away.
 # Each case also checks that the same limits reject planted faults of the
-# plain version (a length off by one, a 64-row chunk of keys dropped).
+# plain version (a length off by one, a 64-row chunk of keys dropped, and
+# for flash attention keys [128, 256) dropped).
 TOL = {("flash_attention", "bfloat16"): dict(rtol=1e-2, atol=5e-3),
        ("decode_attention", "bfloat16"): dict(rtol=1e-2, atol=2e-3),
        ("flash_attention", "float32"): dict(rtol=1e-4, atol=1e-5),
@@ -265,21 +268,36 @@ def bound(nbytes: float, ops: float):
 
 def flash_cases():
     bf, f32 = torch.bfloat16, torch.float32
-    # (label, B, H, KV, Sq, Sk, hd, dtype, causal)
-    return [("yi-6b prefill", 4, 32, 4, 512, 512, 128, bf, True),
-            ("yi-6b long prompt", 1, 32, 4, 2048, 2048, 128, bf, True),
-            ("yi-6b admit", 1, 32, 4, 256, 256, 128, bf, True),
-            ("zamba2 prefill", 4, 32, 32, 512, 512, 64, bf, True),
-            ("ragged GQA non-causal", 3, 8, 2, 77, 301, 64, f32, False),
-            ("ragged GQA non-causal", 2, 8, 2, 77, 130, 64, bf, False),
-            ("ragged GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
-            ("ragged GQA causal Sq>Sk", 2, 8, 2, 100, 70, 128, bf, True),
-            ("ragged GQA causal Sq<Sk", 2, 4, 2, 40, 70, 16, bf, True),
-            ("MHA", 1, 2, 2, 32, 32, 16, f32, True),
-            ("MHA", 1, 2, 2, 32, 32, 16, bf, True),
-            ("MQA", 1, 4, 1, 48, 48, 32, f32, True),
-            ("MQA", 1, 4, 1, 48, 48, 32, bf, True),
-            ("MHA non-causal Sq<Sk", 1, 2, 2, 16, 64, 16, f32, False)]
+    # (label, B, H, KV, Sq, Sk, hd, dtype, causal, layout): "fused" reads
+    # q, k and v as strided views of one (B, S, H + 2 KV, hd) tensor
+    cases = [("yi-6b prefill", 4, 32, 4, 512, 512, 128, bf, True),
+             ("yi-6b long prompt", 1, 32, 4, 2048, 2048, 128, bf, True),
+             ("yi-6b admit", 1, 32, 4, 256, 256, 128, bf, True),
+             ("zamba2 prefill", 4, 32, 32, 512, 512, 64, bf, True),
+             ("ragged GQA non-causal", 3, 8, 2, 77, 301, 64, f32, False),
+             ("ragged GQA non-causal", 2, 8, 2, 77, 130, 64, bf, False),
+             ("ragged GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
+             ("ragged GQA causal Sq>Sk", 2, 8, 2, 100, 70, 128, bf, True),
+             ("ragged GQA causal Sq<Sk", 2, 4, 2, 40, 70, 16, bf, True),
+             ("MHA", 1, 2, 2, 32, 32, 16, f32, True),
+             ("MHA", 1, 2, 2, 32, 32, 16, bf, True),
+             ("MQA", 1, 4, 1, 48, 48, 32, f32, True),
+             ("MQA", 1, 4, 1, 48, 48, 32, bf, True),
+             ("MHA non-causal Sq<Sk", 1, 2, 2, 16, 64, 16, f32, False)]
+    # the bf16 body's 128-row query blocks and 128-key tiles: lengths on
+    # either side of one and two tiles, at both model head dims
+    for hd in (64, 128):
+        cases += [(f"tile edge S={S}", 2, 8, 2, S, S, hd, bf, True)
+                  for S in (127, 128, 129, 255, 257)]
+        cases += [("tile edges causal Sq>Sk", 2, 8, 2, 257, 129, hd, bf, True),
+                  ("tile edges causal Sq<Sk", 2, 8, 2, 129, 255, hd, bf, True),
+                  ("tile edges non-causal", 2, 8, 2, 129, 257, hd, bf, False),
+                  ("tile edges non-causal Sq>Sk", 1, 4, 1, 255, 128, hd, bf,
+                   False),
+                  ("fused qkv", 2, 8, 2, 257, 257, hd, bf, True, "fused")]
+    # 5 x 9 x 5 = 225 blocks: not a whole number of waves on 132 SMs
+    cases.append(("225 blocks", 5, 9, 3, 640, 640, 128, bf, True))
+    return [c if len(c) == 10 else (*c, "contiguous") for c in cases]
 
 
 def decode_cases():
@@ -344,6 +362,8 @@ def flash_faults(q, k, v, causal):
     faults = {"one key off": kp <= qp + 1 if causal else kp < Sk - 1}
     if Sk > 64 and (Sq > 64 or not causal):
         faults["64-key chunk dropped"] = right & ((kp < 64) | (kp >= 128))
+    if Sk >= 192 and (Sq >= 192 or not causal):
+        faults["keys [128, 256) dropped"] = right & ((kp < 128) | (kp >= 256))
     return {f: plain_masked(q, k, v, m.expand(B, Sq, Sk))[0]
             for f, m in faults.items()}
 
@@ -376,20 +396,30 @@ def report(kernel, label, shape, out, ref, faults):
     return err
 
 
-def check_kernels(device):
-    """Every case: kernel against plain version. Returns each kernel's
-    max abs error at its serving-shape case."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    for label, B, H, KV, Sq, Sk, hd, dt, causal in flash_cases():
-        q, k, v = rand_like_cases(gen, [(B, Sq, H, hd), (B, Sk, KV, hd),
-                                        (B, Sk, KV, hd)], dt, device)
+def flash_inputs(gen, B, H, KV, Sq, Sk, hd, dtype, layout, device):
+    """q (B, Sq, H, hd), k and v (B, Sk, KV, hd); "fused" (Sq == Sk) cuts
+    them from one (B, S, H + 2 KV, hd) tensor, as a fused QKV projection
+    would hand them over."""
+    if layout == "fused":
+        qkv = torch.randn((B, Sq, H + 2 * KV, hd), generator=gen,
+                          device=device).to(dtype)
+        return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    return rand_like_cases(gen, [(B, Sq, H, hd), (B, Sk, KV, hd),
+                                 (B, Sk, KV, hd)], dtype, device)
+
+
+def check_flash(device, gen):
+    """Every B1 case against the plain version; returns the max abs error
+    of the yi-6b prefill case."""
+    err_main = 0.0
+    for label, B, H, KV, Sq, Sk, hd, dt, causal, layout in flash_cases():
+        q, k, v = flash_inputs(gen, B, H, KV, Sq, Sk, hd, dt, layout, device)
         o, lse = FO.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         o_ref, lse_ref = FR.flash_attention_ref(q, k, v, causal=causal)
         name = str(dt).replace("torch.", "")
         shape = (f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} {name} "
-                 f"causal={causal}")
+                 f"causal={causal} {layout}")
         lerr = (lse - lse_ref).abs().max().item()
         print(f"flash_attention {label} {shape}: max|lse-ref|={lerr:.3g}")
         check(torch.allclose(lse, lse_ref, **LSE_TOL),
@@ -398,7 +428,16 @@ def check_kernels(device):
         err = report("flash_attention", label, shape, o, o_ref,
                      flash_faults(q, k, v, causal))
         if label == "yi-6b prefill":
-            errs["flash_attention"] = err
+            err_main = err
+    return err_main
+
+
+def check_kernels(device):
+    """Every case: kernel against plain version. Returns each kernel's
+    max abs error at its serving-shape case."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    errs = {"flash_attention": check_flash(device, gen),
+            "decode_attention": 0.0}
     for label, B, H, KV, S, hd, dt, lens in decode_cases():
         q, kc, vc = rand_like_cases(gen, [(B, 1, H, hd), (B, S, KV, hd),
                                           (B, S, KV, hd)], dt, device)
@@ -759,6 +798,39 @@ def check_refusals(device):
           "a refused call launched something")
 
 
+# B1's main-path shapes: (path, B, H, KV, S, hd), all bf16 and causal
+FLASH_TIMED = (("yi-6b prefill", 4, 32, 4, 512, 128),
+               ("zamba2 prefill", 4, 32, 32, 512, 64),
+               ("gpt2 train forward", TRAIN_B, 12, 12, TRAIN_S, 64))
+
+
+def time_flash(device, gen):
+    """B1, its plain version and SDPA timed at each of FLASH_TIMED, with
+    the card's bound; one dict a shape."""
+    bf = torch.bfloat16
+    out = []
+    for path, B, H, KV, S, hd in FLASH_TIMED:
+        sets = [rand_like_cases(gen, [(B, S, H, hd), (B, S, KV, hd),
+                                      (B, S, KV, hd)], bf, device)
+                for _ in range(4)]
+        ms = time_ms(lambda q, k, v: FO.flash_attention(q, k, v), sets)
+        plain = time_ms(lambda q, k, v: FR.flash_attention_ref(q, k, v),
+                        sets, iters=5)
+        lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), sets)
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd) \
+            + 4 * B * H * S
+        ops = 4 * B * H * hd * S * (S + 1) / 2      # causal QK^T and PV
+        b_ms, b_by = bound(nbytes, ops)
+        out.append({"path": path, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                    "vs_library": ms / lib,
+                    "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
+                             f"causal"})
+    return out
+
+
 def time_kernels(device, errs, launches):
     """The kernels' line: each kernel, its plain version and the library
     call timed at the main paths' shapes (B1 and B3 serving yi-6b, B2a and
@@ -769,20 +841,10 @@ def time_kernels(device, errs, launches):
     bf = torch.bfloat16
     out = []
 
-    # B1 at the prefill of ServeEngine.generate: (4, 512), yi-6b heads
-    B, H, KV, S, hd = 4, 32, 4, 512, 128
-    sets = [rand_like_cases(gen, [(B, S, H, hd), (B, S, KV, hd),
-                                  (B, S, KV, hd)], bf, device)
-            for _ in range(4)]
-    ms = time_ms(lambda q, k, v: FO.flash_attention(q, k, v), sets)
-    plain = time_ms(lambda q, k, v: FR.flash_attention_ref(q, k, v), sets,
-                    iters=5)
-    lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True), sets)
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd) + 4 * B * H * S
-    ops = 4 * B * H * hd * S * (S + 1) / 2          # causal QK^T and PV
-    b_ms, b_by = bound(nbytes, ops)
+    # B1 at its three main-path shapes; the entry's own numbers are the
+    # yi-6b prefill's, the first
+    shapes = time_flash(device, gen)
+    main = shapes[0]
     out.append({"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
                           "flash_fwd.cu",
@@ -790,13 +852,14 @@ def time_kernels(device, errs, launches):
                 "launches": sum(n["flash_attention"] for n in launches.values()),
                 "launches_by_path": {p: n["flash_attention"]
                                      for p, n in launches.items()},
-                "max_abs_err": errs["flash_attention"], "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib,
-                "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"})
+                "max_abs_err": errs["flash_attention"],
+                **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "shape")},
+                "shapes": shapes})
 
     # B3 at a decode step of the ragged generate: 32 layers' caches
-    B, S = 4, SERVE_MAX_LEN
+    B, S, H, KV, hd = 4, SERVE_MAX_LEN, 32, 4, 128
     lens = [n + N_NEW // 2 for n in PROMPT_LENS]
     ln = torch.tensor(lens, dtype=torch.int32, device=device)
     mask = (torch.arange(S, device=device)[None, :] < ln[:, None])
@@ -2181,6 +2244,22 @@ def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
     return out
 
 
+def print_ptxas(lib: str, marker: str) -> None:
+    """ptxas's registers, stack and spills for each kernel of ``lib``
+    whose name holds ``marker``, and any warning of it, from this run's
+    build."""
+    lines = _build.LOGS.get(lib, "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and marker in line:
+            name = line.split("'")[1]
+            props = " | ".join(x.split(":", 1)[-1].strip()
+                               for x in lines[i + 1:i + 4]
+                               if "Function properties" not in x)
+            print(f"ptxas {lib} {name}: {props}")
+        elif "C75" in line or ("arning" in line and "#177" not in line):
+            print(f"ptxas {lib}: {line.strip()}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke run needs an NVIDIA card")
@@ -2195,6 +2274,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     print(f"setup: kernels built in {time.perf_counter() - t0:.1f} s")
+    print_ptxas("flash_fwd", "hopper")
 
     errs = check_kernels(device)
     errs.update(check_bwd(device))

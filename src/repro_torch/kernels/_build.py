@@ -22,7 +22,8 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
 
 # name -> source, relative to this directory
 SOURCES = {
@@ -35,6 +36,9 @@ SOURCES = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# name -> nvcc's output (with ptxas's registers, spills and warnings) for
+# each library this process built
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -82,6 +86,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, ctypes.CDLL]:
                     tmp.unlink(missing_ok=True)
                 else:
                     os.replace(tmp, target)
+                    LOGS[n] = out
             if errors:
                 raise RuntimeError("\n".join(errors))
         for n in names:

@@ -2,41 +2,61 @@
 // for ctypes.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:32 `_fwd_kernel`
-// (launched by `flash_fwd` at :86). Same function: streaming-softmax
-// attention that returns O in q's dtype and the float32 log-sum-exp, GQA by
-// head index h / (H / KV), a top-left causal mask (key k is seen by query q
-// when k <= q) or none, ragged Sq and Sk masked inside the kernel, the
-// scores q . k * scale formed in float32.
+// (launched by `flash_fwd` at :86, `pl.pallas_call` at :107). Same
+// function: streaming-softmax attention that returns O in q's dtype and the
+// float32 log-sum-exp, GQA by head index h / (H / KV), a top-left causal
+// mask (key k is seen by query q when k <= q) or none, ragged Sq and Sk
+// masked inside the kernel, the scores q . k * scale formed in float32.
 //
 // What bounds it on an H100: the causal work is 2 * B * H * hd * S^2
-// operations against the bytes of q, k, v and o. At yi-6b's heads
-// (H = 32, KV = 4) that is 0.44 * S operations a byte: at S = 512 the
-// card's least time is set by the bytes, from S ~ 700 up by the bf16
-// tensor-core rate.
+// operations against the bytes of q, k, v, o and the LSE, each moved once.
+// At the main path's shapes the bytes set the card's least time: yi-6b's
+// prefill (B=4, S=512, H=32, KV=4, hd=128) moves 38 MB, 0.0113 ms at 3.35
+// TB/s, against 0.0087 ms of bf16 tensor-core work; zamba2's prefill (hd=64,
+// H=KV=32) 0.0101 against 0.0044; a gpt2-124m train step's forward (B=8,
+// S=1024, H=KV=12, hd=64) 0.0151 against 0.0130. Past the device memory,
+// every 128 query rows read each K/V tile again from L2 (84 MB at yi-6b's
+// shape), and a block that waits on a load or a store leaves its SM idle.
 //
 // Design: the TPU kernel walks a sequential (B, H, nq, nk) grid and carries
 // m, l and the accumulator in VMEM scratch from one grid step to the next.
-// On Hopper blocks run in parallel and carry nothing, so one block owns one
-// (b, h, 64-row q tile) and loops over the K/V tiles itself; m, l and the
-// accumulator stay in registers, so the running softmax never touches
-// device memory. Causal blocks stop at the diagonal tile. The kernel reads
-// q, k and v in their (B, S, heads, hd) layouts through strides, so the
-// caller makes no transposed copies, and the K/V head of a query head is
-// picked by index, never repeated. Two bodies:
+// On Hopper blocks run in parallel and carry nothing. Two bodies:
 //
-// * bfloat16 (the serving path): the two products run on the tensor cores
-//   with mma.sync m16n8k16 (bf16 in, float32 accumulate). Each of 4 warps
-//   owns 16 query rows; Q stays in registers as A fragments, 64-row K and V
-//   tiles are staged in shared memory (V read transposed by ldmatrix), and
-//   the score fragments become the A fragments of P . V in registers. The
-//   scale is applied to the float32 scores; P is rounded to bf16 for the
-//   second product, as FlashAttention-2 does.
-// * float32: the products run on the CUDA cores in float32 over 64-row
-//   K/V tiles staged in shared memory, each thread owning 4 rows by hd / 8
-//   columns of the accumulator.
-//
-// TMA loads, warp specialisation and wgmma are later work.
+// * bfloat16 (every model's path; hd = 16, 32, 64, 128): persistent, one
+//   block per SM walking work tiles of 128 query rows of one (b, h), the
+//   causal ones heaviest first so the light ones fill the end. Warpgroup 0
+//   is the producer: one thread TMA-loads each tile's Q and its K/V tiles
+//   into a 2-stage ring of mbarrier-guarded stages (setmaxnreg leaves it 24
+//   registers), a tile's Q as soon as the last S of the tile before has
+//   read its own, so loads overlap the neighbour's products and stores.
+//   Two consumer warpgroups (240 registers each) own 64 query rows each:
+//   S = Q K^T is wgmma with both operands read from shared memory through
+//   descriptors; the online softmax runs on the accumulator fragments in
+//   log2 units (scale * log2e folded into one FFMA before ex2; the mask only
+//   on tiles that cross Sk or the warpgroup's diagonal; row max and sum over
+//   the 4 threads of a row by shuffles); P is rounded to bf16 in registers
+//   and is the A operand of O += P V, with V read MN-major from its
+//   [keys][hd] rows (the transpose bit). S of tile t+1 is issued with P V
+//   of tile t, so the tensor cores work through the softmax. O leaves
+//   through shared memory in the swizzled layout by one TMA store a warp,
+//   and the LSE goes back to natural log. K/V tiles hold 128 keys, 64 at
+//   hd = 128, where 128-key S, P and O do not fit the registers together;
+//   there a causal work's last tile lies past the first warpgroup's rows,
+//   and that warpgroup only releases it, and O is rescaled only when a
+//   row's max grows by more than 2^8.
+//   q, k, v and o are read and written through 4-D (hd, heads, S, B)
+//   tensor maps of their strided layouts, encoded on the host per call with
+//   the 128-, 64- or 32-byte swizzle of a 64-, 32- or 16-column box (hd =
+//   128 is two boxes); TMA's zero fill masks the rows past Sq and Sk, and
+//   its stores skip them. cuTensorMapEncodeTiled comes from the driver
+//   through cudaGetDriverEntryPointByVersion, so the library needs no
+//   -lcuda.
+// * float32: one block per (b, h, 64-row q tile) loops over the K/V tiles
+//   with m, l and the accumulator in registers, the products on the CUDA
+//   cores over 64-row K/V tiles staged in shared memory, each thread
+//   owning 4 rows by hd / 8 columns of the accumulator.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -227,37 +247,140 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// bfloat16 body: products on the tensor cores (mma.sync m16n8k16)
+// bfloat16 body: TMA into an mbarrier ring, wgmma for both products
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace hopper {
 
 using bf16 = __nv_bfloat16;
-constexpr int BN = 64;  // key rows per tile
-constexpr int VEC = 8;  // bf16 values per 16-byte load
+constexpr int BLOCK_M = 128;     // query rows of a work tile
+constexpr int CONSUMERS = 2;     // warpgroups of 64 query rows each
+constexpr int THREADS = 128 * (1 + CONSUMERS);  // warpgroup 0 loads
+constexpr int STAGES = 2;        // K/V tiles in flight
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
+// A tile is stored as NBOX boxes of [rows][CW] bf16, each box as TMA
+// writes it: rows of RB bytes, swizzled over the row (128, 64 or 32
+// bytes), which is the layout wgmma's descriptors name.
 template <int HD>
-struct Tile {
-  static constexpr int RS = HD + 8;  // padded row (bf16) of the Q, K, V tiles
-  static constexpr size_t smem = sizeof(bf16) * (BM + 2 * BN) * RS;
+struct Cfg {
+  // keys of a K/V tile: at hd = 128 a 128-key tile's S, P and O do not
+  // fit the consumers' registers beside each other
+  static constexpr int BN = HD == 128 ? 64 : 128;
+  // where rescaling O (hd / 2 multiplies a thread a tile) outweighs the
+  // tile's softmax (BN / 2 scores), O is rescaled only when a row's max
+  // grows by more than 8 in log2 units; elsewhere the check costs more
+  // than it saves
+  static constexpr bool LAZY = HD > BN;
+  static constexpr int CW = HD < 64 ? HD : 64;  // columns of one box
+  static constexpr int NBOX = HD / CW;
+  static constexpr int RB = CW * 2;             // bytes of a box row
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr int Q_BYTES = BLOCK_M * HD * 2;
+  static constexpr int KV_BYTES = BN * HD * 2;  // one K or V tile
+  static constexpr int TILES = 2 * Q_BYTES + 2 * STAGES * KV_BYTES;  // Q O K V
+  static constexpr int SMEM = 1024 + TILES + 1024;   // alignment, barriers
 };
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+struct Barriers {
+  uint64_t q_full, q_empty;
+  uint64_t k_full[STAGES], k_empty[STAGES];
+  uint64_t v_full[STAGES], v_empty[STAGES];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// four 8x8 bf16 matrices from shared memory, each transposed
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D (hd, heads, S, B) tensor map into shared memory,
+// completing on `bar`; rows past S arrive as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row, int b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(b)
+      : "memory");
+}
+
+// one box of a 4-D map from shared memory, in this thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int col, int head,
+                                          int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(col),
+         "r"(head), "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup's wgmma are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from touching registers that wgmma owns until here
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | static_cast<uint64_t>(lbo >> 4) << 16
+       | static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -265,168 +388,521 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [row0, row0 + rows) of a (rows, HD) tile into shared memory, 16 bytes
-// a load; rows at or past `limit` are zero
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int rows, int limit) {
-  constexpr int PER_ROW = HD / VEC;
-  for (int i = threadIdx.x; i < rows * PER_ROW; i += NT) {
-    const int r = i / PER_ROW, d = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + d);
-    *reinterpret_cast<uint4*>(dst + r * Tile<HD>::RS + d) = val;
+// wgmma m64nNk16, bf16 in, float32 accumulate, N / 2 accumulators a
+// thread: `ss` (S, N = the K/V tile) reads A and B (both K-major) from
+// shared memory, `rs` (P V, N = hd) reads A from registers and B MN-major
+// from shared memory
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<16> {  // P V at hd = 16
+  // d += A . B, A (64 x 16) from registers, B (16 x 16) MN-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
   }
+};
+
+template <>
+struct Mma<32> {  // P V at hd = 32
+  // d += A . B, A (64 x 16) from registers, B (16 x 32) MN-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <>
+struct Mma<64> {
+  // d (+)= A . B, A (64 x 16) and B (16 x 64) from shared memory; B K-major
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d += A . B, A (64 x 16) from registers, B (16 x 64) MN-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <>
+struct Mma<128> {
+  // d (+)= A . B, A (64 x 16) and B (16 x 128) from shared memory; B K-major
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d += A . B, A (64 x 16) from registers, B (16 x 128) MN-major in shared memory
+  __device__ __forceinline__ static void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+// x, recomputed where it is used: keeps the compiler from hoisting what is
+// derived from it (descriptors, addresses) out of the loops, where it
+// would hold registers that the accumulators need
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
+// S = Q K^T of one tile, both operands K-major, 16 columns of hd a step:
+// within a box the descriptor's start address moves by 32 bytes
 template <int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
-  constexpr int RS = Tile<HD>::RS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][RS]
-  bf16* Ks = Qs + BM * RS;                         // [BN][RS]
-  bf16* Vs = Ks + BN * RS;                         // [BN][RS]
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group, thread
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  load_tile<HD>(Qs, q, p.q_ss, q0, BM, p.Sq);
-  __syncthreads();
-  // this warp's 16 query rows as A fragments, one per 16 columns of hd
-  uint32_t qa[HD / 16][4];
+__device__ __forceinline__ void issue_s(float (&sc)[Cfg<HD>::BN / 2],
+                                        uint32_t q_addr, uint32_t k_addr) {
+  using C = Cfg<HD>;
+  const uint64_t dq = desc(opaque(q_addr), 16, 8 * C::RB, C::LAYOUT);
+  const uint64_t dk = desc(opaque(k_addr), 16, 8 * C::RB, C::LAYOUT);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const bf16* base = Qs + (warp * 16 + g) * RS + kk * 16 + t * 2;
-    qa[kk][0] = ld32(base);
-    qa[kk][1] = ld32(base + 8 * RS);
-    qa[kk][2] = ld32(base + 8);
-    qa[kk][3] = ld32(base + 8 * RS + 8);
+    const uint32_t box = kk * 16 / C::CW, col = (kk * 16 % C::CW) * 2;
+    Mma<C::BN>::ss(sc, dq + ((box * BLOCK_M * C::RB + col) >> 4),
+                   dk + ((box * C::BN * C::RB + col) >> 4), kk > 0);
   }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
-  // accumulator: rows (g, g + 8) of the warp, columns nt * 8 + t * 2 + {0, 1}
-  float o[HD / 8][4];
+// O += P V of one tile: V read MN-major (its [keys][hd] rows), 16 keys a
+// step; the leading byte offset steps from one 64-column box to the next
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[Cfg<HD>::BN / 16][4],
+                                         uint32_t v_addr) {
+  using C = Cfg<HD>;
+  const uint64_t dv = desc(opaque(v_addr), C::BN * C::RB, 8 * C::RB, C::LAYOUT);
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's share
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  for (int kk = 0; kk < C::BN / 16; ++kk)
+    Mma<HD>::rs(o, pa[kk], dv + ((kk * 16 * C::RB) >> 4));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
-  const int k_end = p.causal ? min(p.Sk, q0 + BM) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();  // the previous tile's K and V are consumed
-    load_tile<HD>(Ks, k, p.k_ss, k0, BN, p.Sk);
-    load_tile<HD>(Vs, v, p.v_ss, k0, BN, p.Sk);
-    __syncthreads();
-
-    // S = Q K^T: B fragments straight from the row-major K tile
-    float s[BN / 8][4];
+// Online softmax of one tile on the accumulator, in log2 units. Element i
+// sits at row r_lo + 8 * ((i >> 1) & 1), key k0 + 8 * (i >> 2) + 2 * t +
+// (i & 1); MASK sets the keys the row does not see to -inf. With a
+// positive scale (FAST) the max is taken of the raw scores and
+// P = 2^(s * sl2 - m) costs one FFMA and one ex2 an element; any other
+// scale takes s * sl2 first. With LAZY the running max stays while the
+// tile's exceeds it by 8 or less: P stays below 2^8, and O / l and the
+// LSE do not depend on which max was subtracted. Leaves P (float32) in
+// sc, the running max m and sum l, and O's rescaling in corr.
+template <int BN, bool LAZY, bool MASK, bool FAST>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float sl2,
+                                             int k0, int r_lo, int t, int Sk,
+                                             int causal) {
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const bf16* kb = Ks + (nt * 8 + g) * RS + kk * 16 + t * 2;
-        mma(s[nt], qa[kk], ld32(kb), ld32(kb + 8));
-      }
+  for (int i = 0; i < BN / 2; ++i) {
+    if (!FAST) sc[i] *= sl2;
+    if (MASK) {
+      const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int row = r_lo + 8 * ((i >> 1) & 1);
+      if (col >= Sk || (causal && col > row)) sc[i] = -INFINITY;
     }
-
-    // scale, mask, online softmax; s becomes P (float32)
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t * 2 + (e & 1);
-        const bool ok = col < p.Sk && (!p.causal || col <= row[e >> 1]);
-        s[nt][e] = ok ? s[nt][e] * p.scale : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // the 4 threads t = 0..3 of a row group share its rows
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t * 2 + (e & 1);
-        const bool ok = col < p.Sk && (!p.causal || col <= row[e >> 1]);
-        s[nt][e] = ok ? expf(s[nt][e] - m[e >> 1]) : 0.f;
-        l[e >> 1] += s[nt][e];
-      }
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      o[nt][0] *= corr[0];
-      o[nt][1] *= corr[0];
-      o[nt][2] *= corr[1];
-      o[nt][3] *= corr[1];
-    }
-
-    // O += P V: the score fragments of two key n-tiles are the A fragment
-    // of one 16-key step; V's B fragments come transposed by ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                              pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; nt += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vs + (kk * 16 + (lane & 15)) * RS + nt * 8 + (lane >> 4) * 8);
-        mma(o[nt], pa, vb[0], vb[1]);
-        mma(o[nt + 1], pa, vb[2], vb[3]);
-      }
-    }
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   }
-
+  float mu[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (row[i] >= p.Sq) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-    bf16* out = static_cast<bf16*>(p.o) + b * p.o_sb + (long long)row[i] * p.o_ss + h * p.o_sh;
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(out + nt * 8 + t * 2) =
-          pack(o[nt][2 * i] / ls, o[nt][2 * i + 1] / ls);
-    if (t == 0) p.lse[((long long)b * p.H + h) * p.Sq + row[i]] = m[i] + logf(ls);
+  for (int r = 0; r < 2; ++r) {
+    // the 4 threads t = 0..3 of a row group share its rows
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float tile_max = FAST ? mx[r] * sl2 : mx[r];
+    if (LAZY && m[r] != -INFINITY && tile_max <= m[r] + 8.f) {
+      mu[r] = m[r];
+      corr[r] = 1.f;
+      continue;
+    }
+    const float m_new = fmaxf(m[r], tile_max);
+    mu[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+    corr[r] = ex2(m[r] - mu[r]);
+    m[r] = m_new;
+    l[r] *= corr[r];
   }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const float x = FAST ? fmaf(sc[i], sl2, -mu[(i >> 1) & 1])
+                         : sc[i] - mu[(i >> 1) & 1];
+    sc[i] = ex2(x);
+    l[(i >> 1) & 1] += sc[i];
+  }
+}
+
+// The tile of keys from k0: masked only where it crosses Sk or the
+// diagonal of the warpgroup's rows (from row0).
+template <int BN, bool LAZY>
+__device__ __forceinline__ void softmax(float (&sc)[BN / 2], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        float sl2, int k0, int row0, int r_lo,
+                                        int t, int Sk, int causal) {
+  const bool mask = k0 + BN > Sk || (causal && k0 + BN - 1 > row0);
+  if (sl2 > 0.f) {
+    if (mask) softmax_tile<BN, LAZY, true, true>(sc, m, l, corr, sl2, k0, r_lo, t, Sk, causal);
+    else softmax_tile<BN, LAZY, false, true>(sc, m, l, corr, sl2, k0, r_lo, t, Sk, causal);
+  } else {
+    if (mask) softmax_tile<BN, LAZY, true, false>(sc, m, l, corr, sl2, k0, r_lo, t, Sk, causal);
+    else softmax_tile<BN, LAZY, false, false>(sc, m, l, corr, sl2, k0, r_lo, t, Sk, causal);
+  }
+}
+
+// P rounded to bf16 as the A fragments of P V, one per 16 keys
+template <int BN>
+__device__ __forceinline__ void to_bf16(const float (&sc)[BN / 2],
+                                        uint32_t (&pa)[BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    pa[kk][0] = pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One work tile: BLOCK_M query rows of one (b, h). The tiles are numbered
+// heaviest first (causal: the last query rows have the most keys), heads
+// fastest, so that tiles that share K/V run at the same time.
+template <int BN>
+struct Work {
+  int q0, h, b, n_tiles;
+  __device__ __forceinline__ Work(int w, int Sq, int Sk, int H, int B,
+                                  int causal) {
+    const int nq = (Sq + BLOCK_M - 1) / BLOCK_M;
+    h = w % H;
+    b = w / H % B;
+    q0 = (nq - 1 - w / (H * B)) * BLOCK_M;
+    const int k_end = causal ? min(Sk, q0 + BLOCK_M) : Sk;
+    n_tiles = (k_end + BN - 1) / BN;
+  }
+};
+
+// Persistent: each block walks the work tiles w = blockIdx.x, + gridDim.x,
+// ... The producer loads a tile's Q as soon as the consumers' last S of
+// the tile before has read theirs, and the K/V ring runs on across tiles,
+// so one tile's loads overlap the last products and the stores of the one
+// before.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap to, const Params p) {
+  using C = Cfg<HD>;
+  constexpr int CW = C::CW, RB = C::RB;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled boxes need 1024-byte alignment
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* Os = reinterpret_cast<bf16*>(base + C::Q_BYTES);
+  bf16* Ks = reinterpret_cast<bf16*>(base + 2 * C::Q_BYTES);
+  bf16* Vs = Ks + STAGES * (C::KV_BYTES / 2);
+  Barriers* bars = reinterpret_cast<Barriers*>(base + C::TILES);
+  const int n_work = (p.Sq + BLOCK_M - 1) / BLOCK_M * p.H * p.B;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    bar_init(&bars->q_full, 1);
+    bar_init(&bars->q_empty, 4 * CONSUMERS);  // one arrival a warp
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&bars->k_full[s], 1);
+      bar_init(&bars->v_full[s], 1);
+      bar_init(&bars->k_empty[s], 4 * CONSUMERS);
+      bar_init(&bars->v_empty[s], 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps Q and the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles loaded so far: the ring's position
+      for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+        const Work<C::BN> wk(w, p.Sq, p.Sk, p.H, p.B, p.causal);
+        const int kvh = wk.h / (p.H / p.KV);
+        bar_wait(&bars->q_empty, (n & 1) ^ 1);
+        bar_expect(&bars->q_full, C::Q_BYTES);
+#pragma unroll
+        for (int x = 0; x < C::NBOX; ++x)
+          tma_load(Qs + x * BLOCK_M * CW, &tq, &bars->q_full, x * CW, wk.h,
+                   wk.q0, wk.b);
+        for (int it = 0; it < wk.n_tiles; ++it, ++kv) {
+          const int s = kv % STAGES;
+          const uint32_t ph = (kv / STAGES) & 1;
+          bf16* kd = Ks + s * (C::KV_BYTES / 2);
+          bf16* vd = Vs + s * (C::KV_BYTES / 2);
+          bar_wait(&bars->k_empty[s], ph ^ 1);
+          bar_expect(&bars->k_full[s], C::KV_BYTES);
+#pragma unroll
+          for (int x = 0; x < C::NBOX; ++x)
+            tma_load(kd + x * C::BN * CW, &tk, &bars->k_full[s], x * CW, kvh,
+                     it * C::BN, wk.b);
+          bar_wait(&bars->v_empty[s], ph ^ 1);
+          bar_expect(&bars->v_full[s], C::KV_BYTES);
+#pragma unroll
+          for (int x = 0; x < C::NBOX; ++x)
+            tma_load(vd + x * C::BN * CW, &tv, &bars->v_full[s], x * CW, kvh,
+                     it * C::BN, wk.b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns query rows [q0 + 64 c, q0 + 64 c + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float sl2 = p.scale * LOG2E;  // scores in log2 units
+    const uint32_t q_addr = smem_u32(Qs) + c * 64 * RB;
+    const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+    const uint32_t o_addr = smem_u32(Os);
+    int kv = 0;  // K/V tiles consumed so far
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const Work<C::BN> wk(w, p.Sq, p.Sk, p.H, p.B, p.causal);
+      const int row0 = wk.q0 + c * 64;
+      const int r_lo = row0 + warp * 16 + g;  // this thread's rows: r_lo, r_lo + 8
+      // the tiles with a key that these rows see; the work's other tiles
+      // (causal, 64-key tiles: the first warpgroup's last) are only released
+      const int n_mine = p.causal
+          ? min(wk.n_tiles, (row0 + 64 + C::BN - 1) / C::BN) : wk.n_tiles;
+      float o[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+      float sc[C::BN / 2];
+      uint32_t pa[C::BN / 16][4];
+
+      // Tile it's S is issued together with tile it-1's P V, so that the
+      // tensor cores also work through this warpgroup's own softmax. P is
+      // carried from one step to the next in float32 (sc, the accumulator's
+      // own registers) and rounded to bf16 fragments just before its P V.
+      bar_wait(&bars->q_full, n & 1);
+      {
+        const int s = kv % STAGES;
+        bar_wait(&bars->k_full[s], (kv / STAGES) & 1);
+        wgmma_fence();
+        issue_s<HD>(sc, q_addr, k_base + s * C::KV_BYTES);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (lane == 0) {
+          bar_arrive(&bars->k_empty[s]);
+          if (n_mine == 1) bar_arrive(&bars->q_empty);
+        }
+        softmax<C::BN, C::LAZY>(sc, m, l, corr, sl2, 0, row0, r_lo, t, p.Sk, p.causal);
+      }
+      for (int it = 1; it < n_mine; ++it) {
+        const int s = (kv + it) % STAGES, sp = (kv + it - 1) % STAGES;
+        to_bf16<C::BN>(sc, pa);
+        bar_wait(&bars->k_full[s], ((kv + it) / STAGES) & 1);
+        bar_wait(&bars->v_full[sp], ((kv + it - 1) / STAGES) & 1);
+        wgmma_fence();
+        issue_s<HD>(sc, q_addr, k_base + s * C::KV_BYTES);
+        issue_pv<HD>(o, pa, v_base + sp * C::KV_BYTES);
+        wgmma_wait<1>();  // S of tile it
+        fence_regs(sc);
+        if (lane == 0) {
+          bar_arrive(&bars->k_empty[s]);
+          if (it == n_mine - 1) bar_arrive(&bars->q_empty);
+        }
+        softmax<C::BN, C::LAZY>(sc, m, l, corr, sl2, it * C::BN, row0, r_lo, t, p.Sk,
+                p.causal);
+        wgmma_wait<0>();  // P V of tile it - 1
+        fence_regs(o);
+        fence_regs(pa);
+        if (lane == 0) bar_arrive(&bars->v_empty[sp]);
+        if (!C::LAZY || __any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        }
+      }
+      {
+        const int sp = (kv + n_mine - 1) % STAGES;
+        to_bf16<C::BN>(sc, pa);
+        bar_wait(&bars->v_full[sp], ((kv + n_mine - 1) / STAGES) & 1);
+        wgmma_fence();
+        issue_pv<HD>(o, pa, v_base + sp * C::KV_BYTES);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        if (lane == 0) bar_arrive(&bars->v_empty[sp]);
+      }
+      // a stage is released once its tile has arrived, never before
+      if (lane == 0)
+        for (int it = kv + n_mine; it < kv + wk.n_tiles; ++it) {
+          bar_wait(&bars->k_full[it % STAGES], (it / STAGES) & 1);
+          bar_arrive(&bars->k_empty[it % STAGES]);
+          bar_wait(&bars->v_full[it % STAGES], (it / STAGES) & 1);
+          bar_arrive(&bars->v_empty[it % STAGES]);
+        }
+      kv += wk.n_tiles;
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const float ls = fmaxf(l[r], 1e-30f);
+        inv[r] = 1.f / ls;
+        const int row = r_lo + 8 * r;
+        if (t == 0 && row < p.Sq)
+          p.lse[((long long)wk.b * p.H + wk.h) * p.Sq + row] =
+              (m[r] + log2f(ls)) * LN2;
+      }
+      // O goes out through this warp's 16 rows of the O tile, in the
+      // swizzled layout the O map names, by one TMA store a box that writes
+      // only the rows below Sq. The warp's store before must have read them.
+      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncwarp();
+      const uint32_t row_off = opaque((c * 64 + warp * 16 + g) * RB + 4 * t);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t off = (8 * j / CW) * BLOCK_M * RB + row_off + 8 * r * RB
+                       + (8 * j % CW) * 2;
+          off ^= ((off >> 7) & (RB / 16 - 1)) << 4;
+          st_shared(o_addr + off,
+                    pack(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]));
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int x = 0; x < C::NBOX; ++x)
+          tma_store(&to, Os + x * BLOCK_M * CW + (c * 64 + warp * 16) * CW,
+                    x * CW, wk.h, row0 + warp * 16, wk.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so that the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D (hd, heads, S, B) view of a strided (B, S, heads, hd) bf16
+// tensor, read in boxes of [rows][CW]. A dimension of extent 1 is never
+// stepped over; it gets the stride of a packed tensor, which TMA accepts
+// whatever the caller's tensor says.
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
+                long long sh, long long ss, long long sb, int rows) {
+  using C = Cfg<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint64_t packed = HD * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = packed;
+    packed = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)C::CW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const EncodeTiled encode = encode_tiled();
+  return encode != nullptr
+      && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                C::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Tile<HD>::smem;
-  auto kernel = flash_fwd_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap tq, tk, tv, to;
+  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BLOCK_M)
+      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, Cfg<HD>::BN)
+      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, Cfg<HD>::BN)
+      || !tensor_map<HD>(&to, p.o, p.H, p.Sq, p.B, p.o_sh, p.o_ss, p.o_sb, 16))
+    return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BM - 1) / BM, p.H, p.B);
-  kernel<<<grid, NT, smem, stream>>>(p);
+  const long long n_work = (long long)((p.Sq + BLOCK_M - 1) / BLOCK_M) * p.H * p.B;
+  if (n_work > (1ll << 31) - 1) return cudaErrorInvalidValue;
+  constexpr int smem = Cfg<HD>::SMEM;
+  auto kernel = flash_fwd_kernel<HD>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int grid = n_work < sms ? (int)n_work : sms;
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace hopper
 
 cudaError_t dispatch(const Params& p, int dtype, int hd, cudaStream_t st) {
   if (dtype == 0) {
@@ -438,10 +914,10 @@ cudaError_t dispatch(const Params& p, int dtype, int hd, cudaStream_t st) {
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 16: return tc::launch<16>(p, st);
-      case 32: return tc::launch<32>(p, st);
-      case 64: return tc::launch<64>(p, st);
-      case 128: return tc::launch<128>(p, st);
+      case 16: return hopper::launch<16>(p, st);
+      case 32: return hopper::launch<32>(p, st);
+      case 64: return hopper::launch<64>(p, st);
+      case 128: return hopper::launch<128>(p, st);
     }
   }
   return cudaErrorInvalidValue;
@@ -449,9 +925,10 @@ cudaError_t dispatch(const Params& p, int dtype, int hd, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The bfloat16 body loads 16 bytes at a
-// time: q, k and v must be 16-byte aligned with strides that are multiples
-// of 8 elements. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. The bfloat16 body reads q, k and v
+// and writes o by TMA: each must be 16-byte aligned with strides that are
+// multiples of 8 elements. Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue also when a tensor map cannot be encoded.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int dtype, int B, int H, int KV, int Sq,
                          int Sk, int hd, long long q_sb, long long q_ss,

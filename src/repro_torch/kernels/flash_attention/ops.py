@@ -74,7 +74,7 @@ def _check(q, k, v) -> None:
         raise ValueError(f"head dim {hd} not in {_build.HEAD_DIMS}")
     if min(B, Sq, k.shape[1]) < 1:
         raise ValueError("empty batch or sequence")
-    if q.dtype == torch.bfloat16:   # the tensor-core body loads 16 bytes
+    if q.dtype == torch.bfloat16:   # TMA's condition for the bf16 body
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(f"bfloat16 {name} must be 16-byte aligned "

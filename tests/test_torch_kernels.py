@@ -36,6 +36,13 @@ FLASH_SHAPES = [
     (1, 4, 1, 48, 48, 32, True),    # MQA
     (1, 2, 2, 16, 64, 16, False),   # cross-shaped, non-causal
     (2, 2, 2, 64, 64, 8, True),
+    # the model head dims, with Sq and Sk on both sides of the CUDA body's
+    # 128-row query blocks and 128- (hd 64) or 64-key (hd 128) K/V tiles
+    (1, 2, 1, 129, 127, 64, True),      # causal Sq > Sk
+    (1, 2, 2, 127, 257, 128, True),     # causal Sq < Sk
+    (1, 2, 1, 257, 257, 128, True),
+    (1, 2, 1, 255, 129, 128, False),    # non-causal Sq > Sk
+    (1, 2, 2, 129, 255, 64, False),     # non-causal Sq < Sk
 ]
 
 DECODE_SHAPES = [
