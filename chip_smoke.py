@@ -42,7 +42,9 @@ the train step, and prints:
   its time, the plain version's and one PyTorch call's time at the same
   inputs, and the card's least time for the same work (``bound_ms``);
   flash attention's entry also lists all three of its main-path shapes
-  (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward);
+  (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward), and
+  the backward kernels' entries the time of the whole backward call
+  (``bwd_ms``: delta, B2a and B2b), which compares with SDPA's;
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +56,7 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -457,18 +460,33 @@ def check_kernels(device):
 
 def bwd_cases():
     bf, f32 = torch.bfloat16, torch.float32
-    # (label, B, H, KV, Sq, Sk, hd, dtype, causal)
-    return [("gpt2-124m training", TRAIN_B, 12, 12, TRAIN_S, TRAIN_S, 64, bf,
-             True),
-            ("smoke trainer", 2, 4, 4, 32, 32, 32, bf, True),
-            ("smoke trainer", 2, 4, 4, 32, 32, 32, f32, True),
-            ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, True),
-            ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, False),
-            ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, True),
-            ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, False),
-            ("GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
-            ("GQA causal Sq>Sk", 2, 8, 2, 100, 70, 16, bf, True),
-            ("GQA causal Sq<Sk", 2, 4, 2, 40, 70, 64, bf, True)]
+    # (label, B, H, KV, Sq, Sk, hd, dtype, causal, layout), layout as in
+    # flash_cases
+    cases = [("gpt2-124m training", TRAIN_B, 12, 12, TRAIN_S, TRAIN_S, 64,
+              bf, True),
+             ("smoke trainer", 2, 4, 4, 32, 32, 32, bf, True),
+             ("smoke trainer", 2, 4, 4, 32, 32, 32, f32, True),
+             ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, True),
+             ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, False),
+             ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, True),
+             ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, False),
+             ("GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
+             ("GQA causal Sq>Sk", 2, 8, 2, 100, 70, 16, bf, True),
+             ("GQA causal Sq<Sk", 2, 4, 2, 40, 70, 64, bf, True)]
+    # the bf16 body's 128-row work tiles (queries for B2a, keys for B2b),
+    # B2a's K/V tiles (128 keys, 64 at hd 128) and B2b's 64-query stages:
+    # lengths on either side of one and two tiles, at both model head dims
+    for hd in (64, 128):
+        cases += [(f"tile edge S={S}", 2, 4, 4, S, S, hd, bf, True)
+                  for S in (127, 128, 129, 255, 257)]
+        cases += [("tile edges causal Sq>Sk", 2, 4, 4, 257, 129, hd, bf, True),
+                  ("tile edges causal Sq<Sk", 2, 4, 4, 129, 255, hd, bf, True),
+                  ("tile edges non-causal", 2, 4, 4, 127, 257, hd, bf, False),
+                  ("tile edges non-causal Sq>Sk", 1, 4, 4, 255, 128, hd, bf,
+                   False),
+                  ("tile edges GQA G=4", 2, 8, 2, 255, 255, hd, bf, True),
+                  ("fused qkv", 2, 8, 2, 257, 257, hd, bf, True, "fused")]
+    return [c if len(c) == 10 else (*c, "contiguous") for c in cases]
 
 
 def grad_agreement(out, ref):
@@ -534,11 +552,17 @@ def plain_bwd(q, k, v, o, lse, do, seen, use_delta=True, group_sum=True):
 def bwd_faults(q, k, v, o, lse, do, causal):
     """The plain backward with planted faults: {fault: (dq, dk, dv)}."""
     G = q.shape[2] // k.shape[2]
-    right = causal_seen(q, k, edge=0 if causal else k.shape[1])
+    Sq, Sk = q.shape[1], k.shape[1]
+    right = causal_seen(q, k, edge=0 if causal else Sk)
     faults = {"delta left out": dict(seen=right, use_delta=False)}
     masks = {"64-row K/V tile dropped": tile_dropped(right)}
     if causal:
         masks["causal edge off by one"] = causal_seen(q, k, edge=1)
+    # the second 128-row work tile of B2b (keys) or of B2a (queries) left out
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    masks["keys [128, 256) dropped"] = right & ((kp < 128) | (kp >= 256))
+    masks["queries [128, 256) dropped"] = right & ((qp < 128) | (qp >= 256))
     for fault, seen in masks.items():
         # a mask that changes no seen pair (no query sees a second K/V
         # tile) is no fault at this shape
@@ -558,10 +582,9 @@ def check_bwd(device):
     of dk/dv at the training case."""
     gen = torch.Generator(device=device).manual_seed(2)
     errs = {}
-    for label, B, H, KV, Sq, Sk, hd, dt, causal in bwd_cases():
-        q, k, v, do = rand_like_cases(
-            gen, [(B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd),
-                  (B, Sq, H, hd)], dt, device)
+    for label, B, H, KV, Sq, Sk, hd, dt, causal, layout in bwd_cases():
+        q, k, v = flash_inputs(gen, B, H, KV, Sq, Sk, hd, dt, layout, device)
+        do, = rand_like_cases(gen, [(B, Sq, H, hd)], dt, device)
         o, lse = FO.flash_attention(q, k, v, causal=causal)
         got = FO.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         again = FO.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
@@ -569,7 +592,7 @@ def check_bwd(device):
         ref = FR.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
         name = str(dt).replace("torch.", "")
         shape = (f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} {name} "
-                 f"causal={causal}")
+                 f"causal={causal} {layout}")
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         readings = [grad_agreement(g, r) for g, r in zip(got, ref)]
         print(f"flash_attention_bwd {label} {shape}: " + "; ".join(
@@ -909,6 +932,9 @@ def time_kernels(device, errs, launches):
         lib_sets.append((ot, qt, kt, vt, do.transpose(1, 2)))
     ms_dq = time_ms(lambda *a: FO.flash_bwd_dq(*a, True, scale), sets)
     ms_dkv = time_ms(lambda *a: FO.flash_bwd_dkv(*a, True, scale), sets)
+    # the whole backward as the train step calls it (delta, B2a, B2b),
+    # beside SDPA's, which also forms its delta
+    ms_bwd = time_ms(lambda *a: FO.flash_attention_bwd(*a), full)
     plain = time_ms(lambda *a: FR.flash_attention_bwd_ref(*a), full, iters=5)
     lib = time_ms(lambda ot, qt, kt, vt, dot: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True), lib_sets)
@@ -917,7 +943,9 @@ def time_kernels(device, errs, launches):
     note = ("plain_ms and library_ms are each one timing of a call that "
             "computes dq, dk and dv together (flash_attention_bwd_ref; "
             "torch.autograd.grad of scaled_dot_product_attention); the "
-            "same number stands in the B2a and the B2b entry")
+            "same number stands in the B2a and the B2b entry, as does "
+            "bwd_ms, the whole flash_attention_bwd call (delta, B2a and "
+            "B2b), which is what compares with library_ms")
     for name, ms, line, nbytes, ops in (
             ("flash_bwd_dq", ms_dq, 138,
              2 * (3 * B * S * H * hd + 2 * B * S * KV * hd) + 8 * B * H * S,
@@ -936,7 +964,7 @@ def time_kernels(device, errs, launches):
                                          for p, n in launches.items()},
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-                    "note": note, "shape": shape})
+                    "bwd_ms": ms_bwd, "note": note, "shape": shape})
 
     # B4 at a Mamba2 block of zamba2-1.2b's prefill: (4, 512), 64 heads
     B, T, H, P, N = 4, 512, 64, 64, 64
@@ -2244,20 +2272,43 @@ def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
     return out
 
 
-def print_ptxas(lib: str, marker: str) -> None:
-    """ptxas's registers, stack and spills for each kernel of ``lib``
-    whose name holds ``marker``, and any warning of it, from this run's
-    build."""
-    lines = _build.LOGS.get(lib, "").splitlines()
+def ptxas_report(log: str, marker: str) -> tuple[list[str], list[str]]:
+    """From nvcc's output ``log``: one line of ptxas's registers, stack and
+    spills for each kernel whose name holds ``marker``, plus each warning;
+    and the faults among them: an instance with a stack frame or a spill,
+    an instance whose properties are missing, a "C75xx" warning (wgmma
+    serialised), or no instance at all."""
+    lines = log.splitlines()
+    report, faults = [], []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and marker in line:
             name = line.split("'")[1]
             props = " | ".join(x.split(":", 1)[-1].strip()
                                for x in lines[i + 1:i + 4]
                                if "Function properties" not in x)
-            print(f"ptxas {lib} {name}: {props}")
+            report.append(f"{name}: {props}")
+            sizes = re.findall(r"(\d+) bytes (stack frame|spill stores|"
+                               r"spill loads)", props)
+            if len(sizes) != 3 or any(int(n) for n, _ in sizes):
+                faults.append(f"{name}: {props}")
         elif "C75" in line or ("arning" in line and "#177" not in line):
-            print(f"ptxas {lib}: {line.strip()}")
+            report.append(line.strip())
+            if re.search(r"C75\d\d", line):
+                faults.append(line.strip())
+    if not any("Compiling entry function" in x and marker in x
+               for x in lines):
+        faults.append(f"no ptxas report of a '{marker}' kernel")
+    return report, faults
+
+
+def print_ptxas(lib: str, marker: str) -> None:
+    """Print ptxas's report of ``lib``'s ``marker`` kernels from its build,
+    and fail if any of them has a stack frame, spills or serialises
+    wgmma."""
+    report, faults = ptxas_report(_build.log(lib), marker)
+    for line in report:
+        print(f"ptxas {lib} {line}")
+    check(not faults, f"ptxas {lib}: " + "; ".join(faults))
 
 
 def main() -> None:
@@ -2275,6 +2326,7 @@ def main() -> None:
     _build.build()
     print(f"setup: kernels built in {time.perf_counter() - t0:.1f} s")
     print_ptxas("flash_fwd", "hopper")
+    print_ptxas("flash_bwd", "hopper")
 
     errs = check_kernels(device)
     errs.update(check_bwd(device))
@@ -2305,9 +2357,10 @@ def main() -> None:
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        whole = f", whole backward {k['bwd_ms']:.4f}" if "bwd_ms" in k else ""
         print(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
               f"library {lib}, bound {k['bound_ms']:.4f} by "
-              f"{k['bound_by']}) on {card}")
+              f"{k['bound_by']}{whole}) on {card}")
     print(json.dumps(serving))
     print(json.dumps(training))
     print(json.dumps(zamba))

@@ -3,8 +3,9 @@
 Each kernel's ``csrc/*.cu`` compiles for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
 root of the checkout, on first use. The file name carries a hash of the
-source and the flags, so an edited source builds anew. A missing ``nvcc``
-or a failed build raises: nothing falls back to the plain versions.
+source, the headers beside it and the flags, so an edited source or header
+builds anew. A missing ``nvcc`` or a failed build raises: nothing falls
+back to the plain versions.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ SOURCES = {
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> nvcc's output (with ptxas's registers, spills and warnings) for
-# each library this process built
+# each library this process built; it is also kept beside the library
 LOGS: Dict[str, str] = {}
 
 
@@ -51,10 +52,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path: its name carries a hash of the source, of the
+    headers beside it (``*.cuh`` in its ``csrc/``) and of the flags."""
     src = KERNELS_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str):
@@ -85,6 +90,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, ctypes.CDLL]:
                                   f"(exit {proc.returncode}):\n{out}")
                     tmp.unlink(missing_ok=True)
                 else:
+                    target.with_suffix(".log").write_text(out)
                     os.replace(tmp, target)
                     LOGS[n] = out
             if errors:
@@ -93,6 +99,15 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, ctypes.CDLL]:
             if n not in _loaded:
                 _loaded[n] = ctypes.CDLL(str(_target(n)))
         return {n: _loaded[n] for n in names}
+
+
+def log(name: str) -> str:
+    """nvcc's output for the library of ``name`` as it stands now: this
+    process's build, else the log kept beside a cached library, else ""."""
+    if name in LOGS:
+        return LOGS[name]
+    path = _target(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -24,40 +24,55 @@
 // Design: the TPU kernels walk sequential grids and carry dQ (over the K/V
 // blocks) or dK/dV (over the G heads x q blocks) in VMEM scratch from one
 // grid step to the next. On Hopper blocks run in parallel and carry
-// nothing, so each block owns one output tile and loops over the tiles it
-// needs itself, with the sums in registers:
-//
-// * B2a: one block per (b, h, 64-row q tile) loops over the K/V tiles of
-//   K/V head h / G up to the causal diagonal and writes its dQ tile once.
-// * B2b: one block per (b, K/V head, 64-row k tile) loops over the G query
-//   heads x the q tiles from the diagonal on and writes its dK and dV tiles
-//   once.
-//
-// Every output element is written by exactly one block and no kernel uses
-// atomics, so the backward repeats bit for bit. No P matrix is stored. The
-// kernels read q, k, v, dO and write the gradients in their (B, S, heads,
-// hd) layouts through strides, so the caller makes no transposed copies.
+// nothing, so each output tile is owned by one block, which loops over the
+// tiles it needs itself with the sums in registers: B2a over the K/V tiles
+// of K/V head h / G up to the causal diagonal, B2b over the G query heads x
+// the q tiles from the diagonal on. Every output element is written by
+// exactly one block and no kernel uses atomics, so the backward repeats bit
+// for bit; no P matrix is stored. Two kernels and not one: one kernel that
+// owns a K/V tile would have to add up each q tile's dQ across the blocks
+// that own its keys, by float atomics (whose order changes from run to run)
+// or by a semaphore-ordered float32 sum (a zero fill, a convert pass and
+// serialised writers). Two kernels recompute S and dP (7 products where
+// one kernel runs 5), but each is B1's loop turned one way or the other.
 // Two bodies, as in flash_fwd.cu:
 //
-// * bfloat16 (the training path): the products run on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, float32 accumulate). Each of 4 warps owns
-//   16 rows of the block's tile; the four 64-row tiles sit in shared
-//   memory; A fragments are read from the row-major tiles, B fragments
-//   straight from a row-major tile (the k . q^T kind of product) or
-//   transposed by ldmatrix (the P . V kind), and the float32 score
-//   fragments turn into the bf16 A fragments of the next product in
-//   registers. P and dS are rounded to bf16 before their products, as
-//   FlashAttention-2 does.
+// * bfloat16 (the training path; hd = 16, 32, 64, 128), on the building
+//   blocks of hopper.cuh. Both kernels are persistent, one block per SM
+//   walking work tiles of 128 rows, causal ones heaviest first, in snake
+//   order. Warpgroup 0 is the producer (setmaxnreg leaves it 24 registers,
+//   40 in B2b): TMA loads through 4-D (hd, heads, S, B) tensor maps of the
+//   strided layouts into stages guarded by mbarriers, whose ring runs on
+//   across work tiles. Two consumer warpgroups (240 registers each, 232 in
+//   B2b) own 64 rows each. Every product is wgmma with float32 accumulators
+//   in registers: the score-like ones (S, dP, S^T, dP^T) `ss` with both
+//   operands K-major in shared memory, the gradient ones `rs` with P or dS
+//   rounded to bf16 into A fragments in registers, as FlashAttention-2
+//   rounds them, and B read MN-major from the [rows][hd] tile that the `ss`
+//   product read K-major. P = 2^(s * scale * log2e - lse * log2e), one FFMA
+//   and one ex2 an element; the mask applies only on tiles that cross Sq,
+//   Sk or the warpgroup's diagonal. The gradients leave through shared
+//   memory in the swizzled layout by TMA stores, which skip the rows past
+//   Sq or Sk, as TMA's zero fill masks them on the way in.
+//   - B2a: a work tile is 128 query rows of one (b, h); its Q and dO are
+//     loaded once, its K and V tiles (128 keys; 64 at hd = 128, where
+//     128-key S and dP do not fit beside dQ) stream through a 2-stage ring.
+//     Each consumer holds its rows' lse and delta in registers; S and dP
+//     issue together, P forms while dP runs, then dQ += dS K.
+//   - B2b: a work tile is 128 keys of one (b, K/V head); its K and V are
+//     loaded once, and the ring carries each 64-query tile's Q and dO (by
+//     TMA) and its lse and delta (loaded by the producer warp's lanes, every
+//     load in flight before the first store: rows of Sq floats are not
+//     16-byte aligned for TMA). S^T = K Q^T and dP^T = V dO^T take lse and
+//     delta by column, that is by query, from the stage; then dV += P^T dO
+//     and dK += dS^T Q. A causal q tile that lies wholly before a
+//     warpgroup's first key is only released.
 // * float32: the products run on the CUDA cores in float32 over tiles
-//   staged transposed in shared memory, each thread owning 4 rows by hd / 8
-//   columns of each sum.
-//
-// TMA loads, warp specialisation and wgmma are later work.
+//   staged transposed in shared memory, one block per (b, h, 64-row q tile)
+//   (B2a) or per (b, K/V head, 64-row k tile) (B2b), each thread owning 4
+//   rows by hd / 8 columns of each sum.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -344,267 +359,560 @@ __global__ void __launch_bounds__(NT) dkv_kernel(const Params p) {
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// bfloat16 body: products on the tensor cores (mma.sync m16n8k16)
+// bfloat16 body: TMA into mbarrier rings, wgmma for every product
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace hopper {
 
-using bf16 = __nv_bfloat16;
-constexpr int VEC = 8;  // bf16 values per 16-byte load
+// The work tile of a block's n-th pass over the grid: the passes run
+// forwards and backwards in turn, so that with work tiles numbered heaviest
+// first a block that takes a heavy tile in one pass takes a light one in
+// the next (the busiest block's share of a causal gpt2-124m backward: 27
+// rounds against a mean of 26.2; 30 with every pass forwards)
+__device__ __forceinline__ int snake(int n) {
+  return n * gridDim.x + (n & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// ----- B2a: dQ -------------------------------------------------------------
 
 template <int HD>
-struct Tile {
-  static constexpr int RS = HD + 8;  // padded row (bf16) of a 64-row tile
-  static constexpr size_t tile = sizeof(bf16) * 64 * RS;
-  static constexpr size_t smem = 4 * tile + 2 * sizeof(float) * 64;
+struct DqCfg : Box<HD> {
+  // keys of a K/V tile: at hd = 128, 128-key S and dP do not fit the
+  // consumers' registers beside dQ
+  static constexpr int BN = HD == 128 ? 64 : 128;
+  static constexpr int Q_BYTES = BLOCK_M * HD * 2;  // Q, dO and dQ tiles
+  static constexpr int KV_BYTES = BN * HD * 2;      // one K or V tile
+  static constexpr int TILES = 3 * Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = 1024 + TILES + 1024;  // alignment, barriers
 };
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct DqBarriers {
+  uint64_t q_full, q_empty;                        // the work tile's Q and dO
+  uint64_t kv_full[STAGES], kv_empty[STAGES];      // the K/V ring
+};
 
-// four 8x8 bf16 matrices from shared memory, each transposed
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + 64) of a (rows, HD) tile into shared memory, 16 bytes
-// a load; rows at or past `limit` are zero
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int limit) {
-  constexpr int PER_ROW = HD / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += NT) {
-    const int r = i / PER_ROW, d = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + d);
-    *reinterpret_cast<uint4*>(dst + r * Tile<HD>::RS + d) = val;
-  }
-}
-
-// A fragment of rows [row, row + 16), columns [col, col + 16) of a
-// row-major tile
-template <int HD>
-__device__ __forceinline__ void a_frag(uint32_t* a, const bf16* tile, int row,
-                                       int col) {
-  constexpr int RS = Tile<HD>::RS;
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const bf16* base = tile + (row + g) * RS + col + t * 2;
-  a[0] = ld32(base);
-  a[1] = ld32(base + 8 * RS);
-  a[2] = ld32(base + 8);
-  a[3] = ld32(base + 8 * RS + 8);
-}
-
-// C[16 x 64] = A_tile[row .. row + 16) . B_tile^T over hd: both tiles row
-// major with hd along the row (the S = Q K^T kind of product)
-template <int HD>
-__device__ __forceinline__ void rows_dot_rows(float (*c)[4], const bf16* A,
-                                              int row, const bf16* Bt) {
-  constexpr int RS = Tile<HD>::RS;
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+// P = exp(S scale - lse) in place, in log2 units (one FFMA and one ex2 an
+// element); MASK zeroes the keys past Sk and, causal, past the row
+template <int BN, bool MASK>
+__device__ __forceinline__ void dq_probs(float (&sc)[BN / 2], float sl2,
+                                         const float (&lse2)[2], int k0,
+                                         int r_lo, int t, int Sk, int causal) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    a_frag<HD>(a, A, row, kk * 16);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* bb = Bt + (nt * 8 + g) * RS + kk * 16 + t * 2;
-      mma(c[nt], a, ld32(bb), ld32(bb + 8));
+  for (int i = 0; i < BN / 2; ++i) {
+    const float x = ex2(fmaf(sc[i], sl2, -lse2[(i >> 1) & 1]));
+    if (MASK) {
+      const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int row = r_lo + 8 * ((i >> 1) & 1);
+      sc[i] = col >= Sk || (causal && col > row) ? 0.f : x;
+    } else {
+      sc[i] = x;
     }
   }
 }
 
-// acc[16 x HD] += X[16 x 64] . M[64 x HD]: X given as float32 C fragments
-// (rounded to bf16 here), M a row-major tile read transposed by ldmatrix
-template <int HD>
-__device__ __forceinline__ void frags_dot_tile(float (*acc)[4],
-                                               const float (*x)[4],
-                                               const bf16* M) {
-  constexpr int RS = Tile<HD>::RS;
-  const int lane = threadIdx.x % 32;
+// dS = P (dP - delta) scale, rounded to bf16 as the A fragments of dS K;
+// dls is delta * scale of the thread's two rows
+template <int BN>
+__device__ __forceinline__ void dq_grads(const float (&sc)[BN / 2],
+                                         const float (&dp)[BN / 2], float scale,
+                                         const float (&dls)[2],
+                                         uint32_t (&da)[BN / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t xa[4] = {pack(x[2 * kk][0], x[2 * kk][1]),
-                            pack(x[2 * kk][2], x[2 * kk][3]),
-                            pack(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+  for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; nt += 2) {
-      uint32_t mb[4];
-      ldmatrix_x4_trans(mb, M + (kk * 16 + (lane & 15)) * RS + nt * 8 + (lane >> 4) * 8);
-      mma(acc[nt], xa, mb[0], mb[1]);
-      mma(acc[nt + 1], xa, mb[2], mb[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int i = 8 * kk + 2 * e, r = e & 1;
+      da[kk][e] = pack(sc[i] * fmaf(dp[i], scale, -dls[r]),
+                       sc[i + 1] * fmaf(dp[i + 1], scale, -dls[r]));
     }
-  }
 }
 
+// Persistent: each block walks the work tiles of 128 query rows of one
+// (b, h), heaviest first (Work), in snake order. The producer loads a
+// tile's Q and dO once and streams its K/V tiles through the ring, which
+// runs on across work tiles. Consumer warpgroup c owns rows [q0 + 64 c,
+// q0 + 64 c + 64): for each K/V tile, S = Q K^T and dP = dO V^T (ss), P
+// from S while dP runs, dS into bf16 fragments, dQ += dS K (rs, K read
+// MN-major from the tile S read K-major).
 template <int HD>
-__global__ void __launch_bounds__(NT) dq_kernel(const Params p) {
-  constexpr int RS = Tile<HD>::RS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][RS]
-  bf16* Ds = Qs + 64 * RS;                         // dO
-  bf16* Ks = Ds + 64 * RS;
-  bf16* Vs = Ks + 64 * RS;
+__global__ void __launch_bounds__(THREADS, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tdq, const Params p) {
+  using C = DqCfg<HD>;
+  constexpr int BN = C::BN, CW = C::CW, RB = C::RB;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled boxes need 1024-byte alignment
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* Ds = reinterpret_cast<bf16*>(base + C::Q_BYTES);
+  bf16* dQs = reinterpret_cast<bf16*>(base + 2 * C::Q_BYTES);
+  bf16* Ks = reinterpret_cast<bf16*>(base + 3 * C::Q_BYTES);
+  bf16* Vs = Ks + STAGES * (C::KV_BYTES / 2);
+  DqBarriers* bars = reinterpret_cast<DqBarriers*>(base + C::TILES);
+  const int n_work = (p.Sq + BLOCK_M - 1) / BLOCK_M * p.H * p.B;
+  const int wg = threadIdx.x / 128;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group, thread
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile<HD>(Qs, static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
-  load_tile<HD>(Ds, static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, q0,
-                p.Sq);
-
-  // this thread's rows (g, g + 8) of the warp's 16
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long at = ((long long)b * p.H + h) * p.Sq + row[i];
-    lse[i] = row[i] < p.Sq ? p.lse[at] : 0.f;
-    dl[i] = row[i] < p.Sq ? p.delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    bar_init(&bars->q_full, 1);
+    bar_init(&bars->q_empty, 4 * CONSUMERS);  // one arrival a warp
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&bars->kv_full[s], 1);
+      bar_init(&bars->kv_empty[s], 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  __syncthreads();
 
-  const int k_end = p.causal ? min(p.Sk, q0 + BM) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();  // the previous tile's K and V are consumed
-    load_tile<HD>(Ks, k, p.k_ss, k0, p.Sk);
-    load_tile<HD>(Vs, v, p.v_ss, k0, p.Sk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_dot_rows<HD>(s, Qs, warp * 16, Ks);   // S = Q K^T
-    rows_dot_rows<HD>(dp, Ds, warp * 16, Vs);  // dP = dO V^T
-    // s becomes dS = P (dP - delta) scale
+  if (wg == 0) {
+    // producer: one thread keeps Q, dO and the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles loaded so far: the ring's position
+      for (int n = 0, w = blockIdx.x; w < n_work; w = snake(++n)) {
+        const Work<BN> wk(w, p.Sq, p.Sk, p.H, p.B, p.causal);
+        const int kvh = wk.h / (p.H / p.KV);
+        bar_wait(&bars->q_empty, (n & 1) ^ 1);
+        bar_expect(&bars->q_full, 2 * C::Q_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const bool ok = seen(p, row[i], k0 + nt * 8 + t * 2 + (e & 1));
-        const float pij = ok ? expf(s[nt][e] * p.scale - lse[i]) : 0.f;
-        s[nt][e] = pij * (dp[nt][e] - dl[i]) * p.scale;
-      }
-    frags_dot_tile<HD>(acc, s, Ks);  // dQ += dS K
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= p.Sq) continue;
-    bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + (long long)row[i] * p.dq_ss + h * p.dq_sh;
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(dq + nt * 8 + t * 2) = pack(acc[nt][2 * i], acc[nt][2 * i + 1]);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NT) dkv_kernel(const Params p) {
-  constexpr int RS = Tile<HD>::RS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][RS], the block's keys
-  bf16* Vs = Ks + 64 * RS;
-  bf16* Qs = Vs + 64 * RS;                         // one q tile
-  bf16* Ds = Qs + 64 * RS;                         // its dO
-  float* Ls = reinterpret_cast<float*>(Ds + 64 * RS);  // [64] lse of the q tile
-  float* Dl = Ls + 64;                                 // [64] delta
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * BM;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int G = p.H / p.KV;
-  load_tile<HD>(Ks, static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, k0, p.Sk);
-  load_tile<HD>(Vs, static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, k0, p.Sk);
-
-  // this thread's key rows (g, g + 8) of the warp's 16
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-
-  // top-left causal: queries before k0 see none of the block's keys
-  const int q_begin = p.causal ? k0 : 0;
-  for (int gh = 0; gh < G; ++gh) {
-    const int h = kvh * G + gh;
-    const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
-    const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
-    for (int q0 = q_begin; q0 < p.Sq; q0 += BN) {
-      __syncthreads();  // the previous q tile is consumed
-      load_tile<HD>(Qs, q, p.q_ss, q0, p.Sq);
-      load_tile<HD>(Ds, dout, p.do_ss, q0, p.Sq);
-      for (int r = threadIdx.x; r < BN; r += NT) {
-        Ls[r] = q0 + r < p.Sq ? lse[q0 + r] : 0.f;
-        Dl[r] = q0 + r < p.Sq ? delta[q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[8][4], dp[8][4];
-      rows_dot_rows<HD>(s, Ks, warp * 16, Qs);   // S^T = K Q^T
-      rows_dot_rows<HD>(dp, Vs, warp * 16, Ds);  // dP^T = V dO^T
-      // s becomes P^T, dp becomes dS^T
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = nt * 8 + t * 2 + (e & 1);
-          const bool ok = seen(p, q0 + r, krow[e >> 1]);
-          const float pij = ok ? expf(s[nt][e] * p.scale - Ls[r]) : 0.f;
-          s[nt][e] = pij;
-          dp[nt][e] = pij * (dp[nt][e] - Dl[r]) * p.scale;
+        for (int x = 0; x < C::NBOX; ++x) {
+          tma_load(Qs + x * BLOCK_M * CW, &tq, &bars->q_full, x * CW, wk.h,
+                   wk.q0, wk.b);
+          tma_load(Ds + x * BLOCK_M * CW, &tdo, &bars->q_full, x * CW, wk.h,
+                   wk.q0, wk.b);
         }
-      frags_dot_tile<HD>(dv, s, Ds);   // dV += P^T dO
-      frags_dot_tile<HD>(dk, dp, Qs);  // dK += dS^T Q
+        for (int it = 0; it < wk.n_tiles; ++it, ++kv) {
+          const int s = kv % STAGES;
+          bf16* kd = Ks + s * (C::KV_BYTES / 2);
+          bf16* vd = Vs + s * (C::KV_BYTES / 2);
+          bar_wait(&bars->kv_empty[s], ((kv / STAGES) & 1) ^ 1);
+          bar_expect(&bars->kv_full[s], 2 * C::KV_BYTES);
+#pragma unroll
+          for (int x = 0; x < C::NBOX; ++x) {
+            tma_load(kd + x * BN * CW, &tk, &bars->kv_full[s], x * CW, kvh,
+                     it * BN, wk.b);
+            tma_load(vd + x * BN * CW, &tv, &bars->kv_full[s], x * CW, kvh,
+                     it * BN, wk.b);
+          }
+        }
+      }
     }
-  }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float sl2 = p.scale * LOG2E;  // scores in log2 units
+    const float one[2] = {1.f, 1.f};    // dQ leaves unscaled
+    const uint32_t q_addr = smem_u32(Qs) + c * 64 * RB;
+    const uint32_t do_addr = smem_u32(Ds) + c * 64 * RB;
+    const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+    int kv = 0;  // K/V tiles consumed so far
+    for (int n = 0, w = blockIdx.x; w < n_work; w = snake(++n)) {
+      const Work<BN> wk(w, p.Sq, p.Sk, p.H, p.B, p.causal);
+      const int row0 = wk.q0 + c * 64;
+      const int r_lo = row0 + warp * 16 + g;  // this thread's rows: r_lo, r_lo + 8
+      // the tiles with a key that these rows see; the work's other tiles
+      // (causal, 64-key tiles: the first warpgroup's last) are only released
+      const int n_mine = p.causal
+          ? min(wk.n_tiles, (row0 + 64 + BN - 1) / BN) : wk.n_tiles;
+      float lse2[2], dls[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r_lo + 8 * r;
+        const long long at = ((long long)wk.b * p.H + wk.h) * p.Sq + row;
+        lse2[r] = row < p.Sq ? p.lse[at] * LOG2E : 0.f;
+        dls[r] = row < p.Sq ? p.delta[at] * p.scale : 0.f;
+      }
+      float dq[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
 
+      bar_wait(&bars->q_full, n & 1);
+      for (int it = 0; it < n_mine; ++it) {
+        const int s = (kv + it) % STAGES;
+        const uint32_t k_addr = k_base + s * C::KV_BYTES;
+        float sc[BN / 2], dp[BN / 2];
+        uint32_t da[BN / 16][4];
+        bar_wait(&bars->kv_full[s], ((kv + it) / STAGES) & 1);
+        wgmma_fence();
+        issue_ss<HD, BN>(sc, q_addr, k_addr);
+        wgmma_commit();
+        issue_ss<HD, BN>(dp, do_addr, v_base + s * C::KV_BYTES);
+        wgmma_commit();
+        wgmma_wait<1>();  // S
+        fence_regs(sc);
+        const int k0 = it * BN;
+        if (k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > row0))
+          dq_probs<BN, true>(sc, sl2, lse2, k0, r_lo, t, p.Sk, p.causal);
+        else
+          dq_probs<BN, false>(sc, sl2, lse2, k0, r_lo, t, p.Sk, p.causal);
+        wgmma_wait<0>();  // dP
+        fence_regs(dp);
+        if (lane == 0 && it == n_mine - 1) bar_arrive(&bars->q_empty);
+        dq_grads<BN>(sc, dp, p.scale, dls, da);
+        wgmma_fence();
+        issue_rs<HD, BN>(dq, da, k_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(da);
+        if (lane == 0) bar_arrive(&bars->kv_empty[s]);
+      }
+      // a stage is released once its tile has arrived, never before
+      if (lane == 0)
+        for (int it = kv + n_mine; it < kv + wk.n_tiles; ++it) {
+          bar_wait(&bars->kv_full[it % STAGES], (it / STAGES) & 1);
+          bar_arrive(&bars->kv_empty[it % STAGES]);
+        }
+      kv += wk.n_tiles;
+
+      // dQ leaves through this warp's 16 rows of the staging tile, by one
+      // TMA store a box that writes only the rows below Sq; the warp's store
+      // before must have read them
+      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncwarp();
+      stage_rows<HD>(smem_u32(dQs), dq, one, c * 64 + warp * 16, g, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+        store_rows<HD>(&tdq, dQs, c * 64 + warp * 16, wk.h, row0 + warp * 16, wk.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// ----- B2b: dK and dV ------------------------------------------------------
+
+// queries of a stage of B2b's ring: 128-query S^T and dP^T beside dK and
+// dV need more registers than a consumer has without spilling
+constexpr int BQ = 64;
+
+template <int HD>
+struct DkvCfg : Box<HD> {
+  static constexpr int K_BYTES = BLOCK_M * HD * 2;  // K, V, dK and dV tiles
+  static constexpr int Q_BYTES = BQ * HD * 2;       // one Q or dO tile
+  static constexpr int TILES = 4 * K_BYTES + 2 * STAGES * Q_BYTES;
+  // then lse and delta of each stage, and the barriers
+  static constexpr int SMEM = 1024 + TILES + 2 * STAGES * BQ * 4 + 1024;
+};
+
+struct DkvBarriers {
+  uint64_t kv_full, kv_empty;             // the work tile's K and V
+  uint64_t full[STAGES], empty[STAGES];   // the Q, dO, lse, delta ring
+};
+
+// One work tile of B2b: BLOCK_M keys of one (b, K/V head), heaviest first
+// (causal: the first keys are seen by the most queries), K/V heads fastest.
+// Its queries come in tiles of BQ rows from q_tile0 (causal: the first that
+// sees a key of it), n_q of them for each of the G query heads.
+struct KeyWork {
+  int k0, kvh, b, q_tile0, n_q;
+  __device__ __forceinline__ KeyWork(int w, int Sq, int KV, int B,
+                                     int causal) {
+    kvh = w % KV;
+    b = w / KV % B;
+    k0 = w / (KV * B) * BLOCK_M;
+    q_tile0 = causal ? k0 / BQ : 0;
+    n_q = max(0, (Sq + BQ - 1) / BQ - q_tile0);
+  }
+};
+
+// P^T = exp(S^T scale - lse) in place, in log2 units: rows are keys,
+// columns queries, so lse (times log2e, from the stage) goes by column.
+// MASK zeroes the queries past Sq and, causal, before the key.
+template <bool MASK>
+__device__ __forceinline__ void dkv_probs(float (&sc)[BQ / 2], float sl2,
+                                          uint32_t lse2, int q0, int kr_lo,
+                                          int t, int Sq, int causal) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (krow[i] >= p.Sk) continue;
-    bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + (long long)krow[i] * p.dk_ss + kvh * p.dk_sh;
-    bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + (long long)krow[i] * p.dv_ss + kvh * p.dv_sh;
+  for (int jj = 0; jj < BQ / 8; ++jj) {
+    const float2 l = ld_shared_f2(lse2 + 4 * (8 * jj + 2 * t));
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(dkp + nt * 8 + t * 2) = pack(dk[nt][2 * i], dk[nt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + nt * 8 + t * 2) = pack(dv[nt][2 * i], dv[nt][2 * i + 1]);
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * jj + e;
+      const float x = ex2(fmaf(sc[i], sl2, -(e & 1 ? l.y : l.x)));
+      if (MASK) {
+        const int col = q0 + 8 * jj + 2 * t + (e & 1);
+        const int row = kr_lo + 8 * (e >> 1);
+        sc[i] = col >= Sq || (causal && row > col) ? 0.f : x;
+      } else {
+        sc[i] = x;
+      }
     }
   }
 }
 
-}  // namespace tc
+// dS^T = P^T (dP^T - delta) scale in place in dp; dls is delta times the
+// scale of the stage's queries
+__device__ __forceinline__ void dkv_grads(const float (&sc)[BQ / 2],
+                                          float (&dp)[BQ / 2], float scale,
+                                          uint32_t dls, int t) {
+#pragma unroll
+  for (int jj = 0; jj < BQ / 8; ++jj) {
+    const float2 d = ld_shared_f2(dls + 4 * (8 * jj + 2 * t));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * jj + e;
+      dp[i] = sc[i] * fmaf(dp[i], scale, -(e & 1 ? d.y : d.x));
+    }
+  }
+}
+
+// Persistent: each block walks the work tiles (KeyWork) in snake order.
+// The producer warp loads a work tile's K and V once, and streams each
+// q tile's Q, dO, lse and delta through the ring (over the G query heads x
+// the q tiles from the diagonal on), which runs on across work tiles.
+// Consumer warpgroup c owns keys [k0 + 64 c, k0 + 64 c + 64): for each q
+// tile, S^T = K Q^T and dP^T = V dO^T (ss), P^T from S^T while dP^T runs,
+// dS^T, both rounded to bf16 fragments, then dV += P^T dO and dK += dS^T Q
+// (rs, dO and Q read MN-major from the tiles S^T and dP^T read K-major). dK
+// and dV are summed over the G heads in registers and written once.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap tdo,
+           const __grid_constant__ CUtensorMap tdk,
+           const __grid_constant__ CUtensorMap tdv, const Params p) {
+  using C = DkvCfg<HD>;
+  constexpr int CW = C::CW, RB = C::RB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Ks = reinterpret_cast<bf16*>(base);
+  bf16* Vs = reinterpret_cast<bf16*>(base + C::K_BYTES);
+  bf16* dKs = reinterpret_cast<bf16*>(base + 2 * C::K_BYTES);
+  bf16* dVs = reinterpret_cast<bf16*>(base + 3 * C::K_BYTES);
+  bf16* Qs = reinterpret_cast<bf16*>(base + 4 * C::K_BYTES);  // [STAGES] tiles
+  bf16* Ds = Qs + STAGES * (C::Q_BYTES / 2);
+  float* Ls = reinterpret_cast<float*>(base + C::TILES);  // [STAGES][BQ] lse log2e
+  float* Dl = Ls + STAGES * BQ;                           // [STAGES][BQ] delta scale
+  DkvBarriers* bars = reinterpret_cast<DkvBarriers*>(Dl + STAGES * BQ);
+  const int n_work = (p.Sk + BLOCK_M - 1) / BLOCK_M * p.KV * p.B;
+  const int G = p.H / p.KV;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    bar_init(&bars->kv_full, 1);
+    bar_init(&bars->kv_empty, 4 * CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&bars->full[s], 32);  // the producer warp's lanes
+      bar_init(&bars->empty[s], 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: warp 0 keeps K, V and the ring full; lane 0 issues the
+    // TMA loads, then every lane loads BQ / 32 queries' lse and delta.
+    // Those loads and the ring's state need 40 registers, which leaves the
+    // consumers 232.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const uint32_t ls_addr = smem_u32(Ls), dl_addr = smem_u32(Dl);
+      int r = 0;  // q tiles loaded so far: the ring's position
+      for (int n = 0, w = blockIdx.x; w < n_work; w = snake(++n)) {
+        const KeyWork wk(w, p.Sq, p.KV, p.B, p.causal);
+        if (lane == 0) {
+          bar_wait(&bars->kv_empty, (n & 1) ^ 1);
+          bar_expect(&bars->kv_full, 2 * C::K_BYTES);
+#pragma unroll
+          for (int x = 0; x < C::NBOX; ++x) {
+            tma_load(Ks + x * BLOCK_M * CW, &tk, &bars->kv_full, x * CW, wk.kvh,
+                     wk.k0, wk.b);
+            tma_load(Vs + x * BLOCK_M * CW, &tv, &bars->kv_full, x * CW, wk.kvh,
+                     wk.k0, wk.b);
+          }
+        }
+        for (int gh = 0; gh < G; ++gh) {
+          const int h = wk.kvh * G + gh;
+          const long long row = ((long long)wk.b * p.H + h) * p.Sq;
+          for (int j = 0; j < wk.n_q; ++j, ++r) {
+            const int s = r % STAGES;
+            const int q0 = (wk.q_tile0 + j) * BQ;
+            bar_wait(&bars->empty[s], ((r / STAGES) & 1) ^ 1);
+            if (lane == 0) {
+              bar_expect_tx(&bars->full[s], 2 * C::Q_BYTES);
+              bf16* qd = Qs + s * (C::Q_BYTES / 2);
+              bf16* dd = Ds + s * (C::Q_BYTES / 2);
+#pragma unroll
+              for (int x = 0; x < C::NBOX; ++x) {
+                tma_load(qd + x * BQ * CW, &tq, &bars->full[s], x * CW, h, q0, wk.b);
+                tma_load(dd + x * BQ * CW, &tdo, &bars->full[s], x * CW, h, q0, wk.b);
+              }
+            }
+            // every load in flight before the first store; a query past Sq
+            // reads the last one's, which the consumers mask
+            float l[BQ / 32], d[BQ / 32];
+#pragma unroll
+            for (int e = 0; e < BQ / 32; ++e) {
+              const int q = min(q0 + 32 * e + lane, p.Sq - 1);
+              l[e] = p.lse[row + q];
+              d[e] = p.delta[row + q];
+            }
+#pragma unroll
+            for (int e = 0; e < BQ / 32; ++e) {
+              const uint32_t at = 4 * (s * BQ + 32 * e + lane);
+              st_shared(ls_addr + at, __float_as_uint(l[e] * LOG2E));
+              st_shared(dl_addr + at, __float_as_uint(d[e] * p.scale));
+            }
+            bar_arrive(&bars->full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const float sl2 = p.scale * LOG2E;
+    const float one[2] = {1.f, 1.f};    // dK and dV leave unscaled
+    const uint32_t k_addr = smem_u32(Ks) + c * 64 * RB;
+    const uint32_t v_addr = smem_u32(Vs) + c * 64 * RB;
+    const uint32_t q_base = smem_u32(Qs), do_base = smem_u32(Ds);
+    const uint32_t ls_addr = smem_u32(Ls), dl_addr = smem_u32(Dl);
+    int r = 0;  // q tiles consumed so far
+    for (int n = 0, w = blockIdx.x; w < n_work; w = snake(++n)) {
+      const KeyWork wk(w, p.Sq, p.KV, p.B, p.causal);
+      const int kw0 = wk.k0 + c * 64;               // this warpgroup's keys
+      const int kr_lo = kw0 + warp * 16 + g;        // this thread's: kr_lo, kr_lo + 8
+      // causal: the q tiles before this warpgroup's first key see none of
+      // its keys and are only released; the last q tile is seen if any is
+      const bool any = wk.n_q > 0
+          && !(p.causal && (wk.q_tile0 + wk.n_q) * BQ - 1 < kw0);
+      float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      bar_wait(&bars->kv_full, n & 1);
+      if (!any && lane == 0) bar_arrive(&bars->kv_empty);
+      for (int gh = 0; gh < G; ++gh)
+        for (int j = 0; j < wk.n_q; ++j, ++r) {
+          const int s = r % STAGES;
+          const uint32_t ph = (r / STAGES) & 1;
+          const int q0 = (wk.q_tile0 + j) * BQ;
+          if (p.causal && q0 + BQ - 1 < kw0) {
+            if (lane == 0) {
+              bar_wait(&bars->full[s], ph);
+              bar_arrive(&bars->empty[s]);
+            }
+            continue;
+          }
+          const uint32_t q_addr = q_base + s * C::Q_BYTES;
+          const uint32_t do_addr = do_base + s * C::Q_BYTES;
+          float sc[BQ / 2], dp[BQ / 2];
+          uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+          bar_wait(&bars->full[s], ph);
+          wgmma_fence();
+          issue_ss<HD, BQ>(sc, k_addr, q_addr);
+          wgmma_commit();
+          issue_ss<HD, BQ>(dp, v_addr, do_addr);
+          wgmma_commit();
+          wgmma_wait<1>();  // S^T
+          fence_regs(sc);
+          if (q0 + BQ > p.Sq || (p.causal && q0 < kw0 + 63))
+            dkv_probs<true>(sc, sl2, ls_addr + 4 * s * BQ, q0, kr_lo, t, p.Sq,
+                            p.causal);
+          else
+            dkv_probs<false>(sc, sl2, ls_addr + 4 * s * BQ, q0, kr_lo, t, p.Sq,
+                             p.causal);
+          wgmma_wait<0>();  // dP^T
+          fence_regs(dp);
+          // K and V are read for the last time by the work's last q tile
+          if (lane == 0 && gh == G - 1 && j == wk.n_q - 1)
+            bar_arrive(&bars->kv_empty);
+          dkv_grads(sc, dp, p.scale, dl_addr + 4 * s * BQ, t);
+          to_bf16<BQ>(sc, pa);
+          to_bf16<BQ>(dp, da);
+          wgmma_fence();
+          issue_rs<HD, BQ>(dv, pa, do_addr);
+          issue_rs<HD, BQ>(dk, da, q_addr);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(da);
+          if (lane == 0) bar_arrive(&bars->empty[s]);
+        }
+
+      // dK and dV leave through this warp's 16 rows of their staging
+      // tiles, by one TMA store a box each that writes only the rows below
+      // Sk; the warp's stores before must have read them
+      if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncwarp();
+      stage_rows<HD>(smem_u32(dKs), dk, one, c * 64 + warp * 16, g, t);
+      stage_rows<HD>(smem_u32(dVs), dv, one, c * 64 + warp * 16, g, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+        store_rows<HD>(&tdk, dKs, c * 64 + warp * 16, wk.kvh, kw0 + warp * 16, wk.b);
+        store_rows<HD>(&tdv, dVs, c * 64 + warp * 16, wk.kvh, kw0 + warp * 16, wk.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+template <int HD>
+cudaError_t launch_dq(const Params& p, cudaStream_t st) {
+  using C = DqCfg<HD>;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BLOCK_M)
+      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, C::BN)
+      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, C::BN)
+      || !tensor_map<HD>(&tdo, p.dout, p.H, p.Sq, p.B, p.do_sh, p.do_ss, p.do_sb,
+                         BLOCK_M)
+      || !tensor_map<HD>(&tdq, p.dq, p.H, p.Sq, p.B, p.dq_sh, p.dq_ss, p.dq_sb, 16))
+    return cudaErrorInvalidValue;
+  int grid;
+  const cudaError_t err = persistent_grid(
+      dq_kernel<HD>, C::SMEM,
+      (long long)((p.Sq + BLOCK_M - 1) / BLOCK_M) * p.H * p.B, &grid);
+  if (err != cudaSuccess) return err;
+  dq_kernel<HD><<<grid, THREADS, C::SMEM, st>>>(tq, tk, tv, tdo, tdq, p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
+  using C = DkvCfg<HD>;
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BQ)
+      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, BLOCK_M)
+      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, BLOCK_M)
+      || !tensor_map<HD>(&tdo, p.dout, p.H, p.Sq, p.B, p.do_sh, p.do_ss, p.do_sb, BQ)
+      || !tensor_map<HD>(&tdk, p.dk, p.KV, p.Sk, p.B, p.dk_sh, p.dk_ss, p.dk_sb, 16)
+      || !tensor_map<HD>(&tdv, p.dv, p.KV, p.Sk, p.B, p.dv_sh, p.dv_ss, p.dv_sb, 16))
+    return cudaErrorInvalidValue;
+  int grid;
+  const cudaError_t err = persistent_grid(
+      dkv_kernel<HD>, C::SMEM,
+      (long long)((p.Sk + BLOCK_M - 1) / BLOCK_M) * p.KV * p.B, &grid);
+  if (err != cudaSuccess) return err;
+  dkv_kernel<HD><<<grid, THREADS, C::SMEM, st>>>(tq, tk, tv, tdo, tdk, tdv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
@@ -618,16 +926,16 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
 
 template <int HD>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t st) {
+  if (dtype == 1) return hopper::launch_dq<HD>(p, st);
   const dim3 grid((p.Sq + BM - 1) / BM, p.H, p.B);
-  if (dtype == 0) return launch(&simt::dq_kernel<HD>, simt::dq_smem<HD>(), grid, p, st);
-  return launch(&tc::dq_kernel<HD>, tc::Tile<HD>::smem, grid, p, st);
+  return launch(&simt::dq_kernel<HD>, simt::dq_smem<HD>(), grid, p, st);
 }
 
 template <int HD>
 cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t st) {
+  if (dtype == 1) return hopper::launch_dkv<HD>(p, st);
   const dim3 grid((p.Sk + BM - 1) / BM, p.KV, p.B);
-  if (dtype == 0) return launch(&simt::dkv_kernel<HD>, simt::dkv_smem<HD>(), grid, p, st);
-  return launch(&tc::dkv_kernel<HD>, tc::Tile<HD>::smem, grid, p, st);
+  return launch(&simt::dkv_kernel<HD>, simt::dkv_smem<HD>(), grid, p, st);
 }
 
 // which: 0 = dQ (B2a), 1 = dK and dV (B2b)
@@ -660,9 +968,10 @@ int entry(int which, const void* q, const void* k, const void* v, const void* do
 
 // dtype: 0 = float32, 1 = bfloat16. `strides` holds 21 element strides, the
 // (batch, sequence, head) strides of q, k, v, dO, dQ, dK and dV in that
-// order. The bfloat16 body loads and stores 4 to 16 bytes at a time: every
-// tensor must be 16-byte aligned with strides that are multiples of 8
-// elements. Each returns a cudaError_t (0 on success).
+// order. The bfloat16 body reads and writes every tensor but lse and delta
+// by TMA: each must be 16-byte aligned with strides that are multiples of 8
+// elements. Each returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue also when a tensor map cannot be encoded.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dq, int dtype, int B,
                             int H, int KV, int Sq, int Sk, int hd, const long long* strides,

@@ -56,11 +56,7 @@
 //   cores over 64-row K/V tiles staged in shared memory, each thread
 //   owning 4 rows by hd / 8 columns of the accumulator.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -252,19 +248,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 namespace hopper {
 
-using bf16 = __nv_bfloat16;
-constexpr int BLOCK_M = 128;     // query rows of a work tile
-constexpr int CONSUMERS = 2;     // warpgroups of 64 query rows each
-constexpr int THREADS = 128 * (1 + CONSUMERS);  // warpgroup 0 loads
-constexpr int STAGES = 2;        // K/V tiles in flight
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// A tile is stored as NBOX boxes of [rows][CW] bf16, each box as TMA
-// writes it: rows of RB bytes, swizzled over the row (128, 64 or 32
-// bytes), which is the layout wgmma's descriptors name.
+// B1's tiles, on the box layout of hopper.cuh
 template <int HD>
-struct Cfg {
+struct Cfg : Box<HD> {
   // keys of a K/V tile: at hd = 128 a 128-key tile's S, P and O do not
   // fit the consumers' registers beside each other
   static constexpr int BN = HD == 128 ? 64 : 128;
@@ -273,13 +259,6 @@ struct Cfg {
   // grows by more than 8 in log2 units; elsewhere the check costs more
   // than it saves
   static constexpr bool LAZY = HD > BN;
-  static constexpr int CW = HD < 64 ? HD : 64;  // columns of one box
-  static constexpr int NBOX = HD / CW;
-  static constexpr int RB = CW * 2;             // bytes of a box row
-  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  static constexpr CUtensorMapSwizzle SWIZZLE =
-      RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   static constexpr int Q_BYTES = BLOCK_M * HD * 2;
   static constexpr int KV_BYTES = BN * HD * 2;  // one K or V tile
   static constexpr int TILES = 2 * Q_BYTES + 2 * STAGES * KV_BYTES;  // Q O K V
@@ -291,234 +270,6 @@ struct Barriers {
   uint64_t k_full[STAGES], k_empty[STAGES];
   uint64_t v_full[STAGES], v_empty[STAGES];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// until the phase of the given parity has completed
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D (hd, heads, S, B) tensor map into shared memory,
-// completing on `bar`; rows past S arrive as zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int head,
-                                         int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(b)
-      : "memory");
-}
-
-// one box of a 4-D map from shared memory, in this thread's bulk group
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int col, int head,
-                                          int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(col),
-         "r"(head), "r"(row), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup's wgmma are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from touching registers that wgmma owns until here
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle layout
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | static_cast<uint64_t>(lbo >> 4) << 16
-       | static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma m64nNk16, bf16 in, float32 accumulate, N / 2 accumulators a
-// thread: `ss` (S, N = the K/V tile) reads A and B (both K-major) from
-// shared memory, `rs` (P V, N = hd) reads A from registers and B MN-major
-// from shared memory
-template <int N>
-struct Mma;
-
-template <>
-struct Mma<16> {  // P V at hd = 16
-  // d += A . B, A (64 x 16) from registers, B (16 x 16) MN-major in shared memory
-  __device__ __forceinline__ static void rs(float (&d)[8],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
-
-template <>
-struct Mma<32> {  // P V at hd = 32
-  // d += A . B, A (64 x 16) from registers, B (16 x 32) MN-major in shared memory
-  __device__ __forceinline__ static void rs(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
-
-template <>
-struct Mma<64> {
-  // d (+)= A . B, A (64 x 16) and B (16 x 64) from shared memory; B K-major
-  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da,
-                                            uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  // d += A . B, A (64 x 16) from registers, B (16 x 64) MN-major in shared memory
-  __device__ __forceinline__ static void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
-
-template <>
-struct Mma<128> {
-  // d (+)= A . B, A (64 x 16) and B (16 x 128) from shared memory; B K-major
-  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  // d += A . B, A (64 x 16) from registers, B (16 x 128) MN-major in shared memory
-  __device__ __forceinline__ static void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
-
-// x, recomputed where it is used: keeps the compiler from hoisting what is
-// derived from it (descriptors, addresses) out of the loops, where it
-// would hold registers that the accumulators need
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-// S = Q K^T of one tile, both operands K-major, 16 columns of hd a step:
-// within a box the descriptor's start address moves by 32 bytes
-template <int HD>
-__device__ __forceinline__ void issue_s(float (&sc)[Cfg<HD>::BN / 2],
-                                        uint32_t q_addr, uint32_t k_addr) {
-  using C = Cfg<HD>;
-  const uint64_t dq = desc(opaque(q_addr), 16, 8 * C::RB, C::LAYOUT);
-  const uint64_t dk = desc(opaque(k_addr), 16, 8 * C::RB, C::LAYOUT);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t box = kk * 16 / C::CW, col = (kk * 16 % C::CW) * 2;
-    Mma<C::BN>::ss(sc, dq + ((box * BLOCK_M * C::RB + col) >> 4),
-                   dk + ((box * C::BN * C::RB + col) >> 4), kk > 0);
-  }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// O += P V of one tile: V read MN-major (its [keys][hd] rows), 16 keys a
-// step; the leading byte offset steps from one 64-column box to the next
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[Cfg<HD>::BN / 16][4],
-                                         uint32_t v_addr) {
-  using C = Cfg<HD>;
-  const uint64_t dv = desc(opaque(v_addr), C::BN * C::RB, 8 * C::RB, C::LAYOUT);
-#pragma unroll
-  for (int kk = 0; kk < C::BN / 16; ++kk)
-    Mma<HD>::rs(o, pa[kk], dv + ((kk * 16 * C::RB) >> 4));
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
 
 // Online softmax of one tile on the accumulator, in log2 units. Element i
 // sits at row r_lo + 8 * ((i >> 1) & 1), key k0 + 8 * (i >> 2) + 2 * t +
@@ -589,36 +340,6 @@ __device__ __forceinline__ void softmax(float (&sc)[BN / 2], float (&m)[2],
     else softmax_tile<BN, LAZY, false, false>(sc, m, l, corr, sl2, k0, r_lo, t, Sk, causal);
   }
 }
-
-// P rounded to bf16 as the A fragments of P V, one per 16 keys
-template <int BN>
-__device__ __forceinline__ void to_bf16(const float (&sc)[BN / 2],
-                                        uint32_t (&pa)[BN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    pa[kk][0] = pack(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
-// One work tile: BLOCK_M query rows of one (b, h). The tiles are numbered
-// heaviest first (causal: the last query rows have the most keys), heads
-// fastest, so that tiles that share K/V run at the same time.
-template <int BN>
-struct Work {
-  int q0, h, b, n_tiles;
-  __device__ __forceinline__ Work(int w, int Sq, int Sk, int H, int B,
-                                  int causal) {
-    const int nq = (Sq + BLOCK_M - 1) / BLOCK_M;
-    h = w % H;
-    b = w / H % B;
-    q0 = (nq - 1 - w / (H * B)) * BLOCK_M;
-    const int k_end = causal ? min(Sk, q0 + BLOCK_M) : Sk;
-    n_tiles = (k_end + BN - 1) / BN;
-  }
-};
 
 // Persistent: each block walks the work tiles w = blockIdx.x, + gridDim.x,
 // ... The producer loads a tile's Q as soon as the consumers' last S of
@@ -727,7 +448,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = kv % STAGES;
         bar_wait(&bars->k_full[s], (kv / STAGES) & 1);
         wgmma_fence();
-        issue_s<HD>(sc, q_addr, k_base + s * C::KV_BYTES);
+        issue_ss<HD, C::BN>(sc, q_addr, k_base + s * C::KV_BYTES);
+        wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
         if (lane == 0) {
@@ -742,8 +464,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         bar_wait(&bars->k_full[s], ((kv + it) / STAGES) & 1);
         bar_wait(&bars->v_full[sp], ((kv + it - 1) / STAGES) & 1);
         wgmma_fence();
-        issue_s<HD>(sc, q_addr, k_base + s * C::KV_BYTES);
-        issue_pv<HD>(o, pa, v_base + sp * C::KV_BYTES);
+        issue_ss<HD, C::BN>(sc, q_addr, k_base + s * C::KV_BYTES);
+        wgmma_commit();
+        issue_rs<HD, C::BN>(o, pa, v_base + sp * C::KV_BYTES);
+        wgmma_commit();
         wgmma_wait<1>();  // S of tile it
         fence_regs(sc);
         if (lane == 0) {
@@ -766,7 +490,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         to_bf16<C::BN>(sc, pa);
         bar_wait(&bars->v_full[sp], ((kv + n_mine - 1) / STAGES) & 1);
         wgmma_fence();
-        issue_pv<HD>(o, pa, v_base + sp * C::KV_BYTES);
+        issue_rs<HD, C::BN>(o, pa, v_base + sp * C::KV_BYTES);
+        wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
@@ -799,82 +524,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       // only the rows below Sq. The warp's store before must have read them.
       if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       __syncwarp();
-      const uint32_t row_off = opaque((c * 64 + warp * 16 + g) * RB + 4 * t);
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          uint32_t off = (8 * j / CW) * BLOCK_M * RB + row_off + 8 * r * RB
-                       + (8 * j % CW) * 2;
-          off ^= ((off >> 7) & (RB / 16 - 1)) << 4;
-          st_shared(o_addr + off,
-                    pack(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]));
-        }
+      stage_rows<HD>(o_addr, o, inv, c * 64 + warp * 16, g, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncwarp();
       if (lane == 0) {
-#pragma unroll
-        for (int x = 0; x < C::NBOX; ++x)
-          tma_store(&to, Os + x * BLOCK_M * CW + (c * 64 + warp * 16) * CW,
-                    x * CW, wk.h, row0 + warp * 16, wk.b);
+        store_rows<HD>(&to, Os, c * 64 + warp * 16, wk.h, row0 + warp * 16, wk.b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
     }
     if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime, so that the
-// library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
-// The 4-D (hd, heads, S, B) view of a strided (B, S, heads, hd) bf16
-// tensor, read in boxes of [rows][CW]. A dimension of extent 1 is never
-// stepped over; it gets the stride of a packed tensor, which TMA accepts
-// whatever the caller's tensor says.
-template <int HD>
-bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
-                long long sh, long long ss, long long sb, int rows) {
-  using C = Cfg<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                           (cuuint64_t)sb * 2};
-  cuuint64_t packed = HD * 2;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1) strides[i] = packed;
-    packed = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)C::CW, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const EncodeTiled encode = encode_tiled();
-  return encode != nullptr
-      && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                C::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
@@ -885,20 +544,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
       || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, Cfg<HD>::BN)
       || !tensor_map<HD>(&to, p.o, p.H, p.Sq, p.B, p.o_sh, p.o_ss, p.o_sb, 16))
     return cudaErrorInvalidValue;
-  int dev, sms;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int grid;
+  const cudaError_t err = persistent_grid(
+      flash_fwd_kernel<HD>, Cfg<HD>::SMEM,
+      (long long)((p.Sq + BLOCK_M - 1) / BLOCK_M) * p.H * p.B, &grid);
   if (err != cudaSuccess) return err;
-  const long long n_work = (long long)((p.Sq + BLOCK_M - 1) / BLOCK_M) * p.H * p.B;
-  if (n_work > (1ll << 31) - 1) return cudaErrorInvalidValue;
-  constexpr int smem = Cfg<HD>::SMEM;
-  auto kernel = flash_fwd_kernel<HD>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  const int grid = n_work < sms ? (int)n_work : sms;
-  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, to, p);
+  flash_fwd_kernel<HD><<<grid, THREADS, Cfg<HD>::SMEM, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 

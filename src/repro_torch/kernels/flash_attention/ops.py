@@ -208,7 +208,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     do = _kernel_layout(do)
     _check_bwd(q, k, v, o, lse, do)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    # do is promoted inside the product: the float32 products of
+    # o.float() * do.float(), bit for bit, without a float32 copy of do
+    delta = (o.float() * do).sum(-1).transpose(1, 2).contiguous()
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv

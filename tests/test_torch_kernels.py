@@ -175,6 +175,44 @@ def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
         _build.build(["decode"])
 
 
+def test_build_target_changes_with_a_header(monkeypatch, tmp_path):
+    """The library's name hashes the headers beside its source too, so an
+    edited header builds anew instead of loading a stale library."""
+    csrc = tmp_path / "flash_attention" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "flash_fwd.cu").write_text('#include "hopper.cuh"\n')
+    (csrc / "hopper.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    first = _build._target("flash_fwd")
+    assert first == _build._target("flash_fwd")
+    (csrc / "hopper.cuh").write_text("// v2\n")
+    edited = _build._target("flash_fwd")
+    assert edited != first and edited.parent == first.parent
+    assert edited.name.startswith("flash_fwd-")
+    (csrc / "other.cuh").write_text("// new\n")
+    assert _build._target("flash_fwd") not in (first, edited)
+
+
+
+def test_build_log_is_read_back_beside_a_cached_library(monkeypatch,
+                                                         tmp_path):
+    """nvcc's output stays beside the library, so a later process that
+    loads the cached library still has ptxas's report of it."""
+    csrc = tmp_path / "src" / "flash_attention" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "flash_fwd.cu").write_text("// v1\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path / "src")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "LOGS", {})
+    assert _build.log("flash_fwd") == ""
+    (tmp_path / "build").mkdir()
+    _build._target("flash_fwd").with_suffix(".log").write_text("ptxas v1")
+    assert _build.log("flash_fwd") == "ptxas v1"
+    (csrc / "flash_fwd.cu").write_text("// v2\n")
+    assert _build.log("flash_fwd") == ""
+    _build.LOGS["flash_fwd"] = "this process"
+    assert _build.log("flash_fwd") == "this process"
+
 def test_kernel_input_checks():
     """The shape, dtype and layout checks the wrappers run before a
     launch (on a card) refuse what the kernels do not take."""
