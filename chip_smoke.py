@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/**/csrc``, holds each
 kernel against its plain PyTorch version on the card (the backward kernels
-also against planted faults and against a second run, bit for bit), then
+and the SSD scan also against planted faults and against a second run, bit
+for bit), then
 drives the port's three main paths at full width with random weights from
 a seed, and shows from the launch counters, set to 0 just before each path
 and read just after, that each went through the kernels:
@@ -159,12 +160,16 @@ ATTN_LEAVES = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
 SMOKE_TRAIN_REL = 5e-5
 # B4 against the plain scan, for y and for the final state: the relative L2
 # error of each batch row, and elementwise |d| <= rtol |ref| + atol_rms
-# rms(ref). Both compute in float32 from the same inputs (bf16 inputs are
-# cast first), so they differ only by the order of the sums: the chunked
-# form's exp(cum[t] - cum[s]) against the sequential product of decays.
-# Measured on an H100: row errors <= 1.02e-6, elements <= 0.234 of the
-# limit 1e-4 |ref| + 3e-5 rms (PERF.md). The same limits must reject
-# six planted faults of the plain scan (SSD_FAULTS).
+# rms(ref). The float32 body computes in float32 from the same inputs, so
+# it differs only by the order of the sums: the chunked form's
+# exp(cum[t] - cum[s]) against the sequential product of decays (measured
+# on an H100: row errors <= 1.02e-6, elements <= 0.234 of the limit 1e-4
+# |ref| + 3e-5 rms, PERF.md). The bf16 body also cuts each float32 operand
+# of its products into three bf16 terms, which leaves ~2^-24 of each, as
+# much as float32 operands would (tests/test_torch_ssd_split.py emulates
+# it on the CPU; two terms broke the elementwise limit at the zamba2
+# prefill case on an H100, PERF.md). The same limits must reject six
+# planted faults of the plain scan (SSD_FAULTS).
 SSD_REL_L2 = 1e-5
 SSD_TOL = dict(rtol=1e-4, atol_rms=3e-5)
 # zamba2-1.2b at full width, kernel path against plain path. (a) float32,
@@ -683,8 +688,17 @@ def ssd_cases():
     bf, f32 = torch.bfloat16, torch.float32
     # (label, B, T, H, P, N, dtype, layout): "model" takes B and C as
     # strided slices of one (B, T, e) tensor, as w_in's split gives them;
-    # "strided" also xh and dt
+    # "strided" also xh and dt. The bf16 cases run the wgmma body: whole
+    # and ragged 64-step chunks, one batch row, and an odd H, whose last
+    # block holds one head (odd H makes e odd, so its B and C are
+    # contiguous: the TMA body refuses B and C at e's stride)
     return [("zamba2 prefill", 4, 512, 64, 64, 64, bf, "model"),
+            ("zamba2 prefill", 4, 512, 64, 64, 64, bf, "contiguous"),
+            ("two chunks", 2, 128, 8, 64, 64, bf, "contiguous"),
+            ("one sequence", 1, 200, 8, 64, 64, bf, "model"),
+            ("odd heads", 2, 130, 5, 64, 64, bf, "contiguous"),
+            ("odd heads at the smoke width", 1, 100, 3, 32, 16, bf,
+             "contiguous"),
             ("zamba2 prefill", 4, 512, 64, 64, 64, f32, "model"),
             ("one step", 2, 1, 8, 64, 64, bf, "contiguous"),
             ("one step", 2, 1, 8, 64, 64, f32, "contiguous"),
@@ -716,14 +730,17 @@ def ssd_inputs(gen, B, T, H, P, N, dtype, layout, device):
 
 def check_ssd(device):
     """B4 against the plain scan in every case, y and the final state; the
-    same limits must reject each planted fault. Returns the max abs error
-    at the bf16 prefill case."""
+    same limits must reject each planted fault, and a second run on the
+    same inputs must give the same bits. Returns the max abs error at the
+    bf16 prefill case."""
     gen = torch.Generator(device=device).manual_seed(3)
     err = 0.0
     for label, B, T, H, P, N, dt_, layout in ssd_cases():
         ins = ssd_inputs(gen, B, T, H, P, N, dt_, layout, device)
         y, h = SO.ssd_scan(*ins, return_state=True)
+        y2, h2 = SO.ssd_scan(*ins, return_state=True)
         torch.cuda.synchronize()
+        bitwise = torch.equal(y, y2) and torch.equal(h, h2)
         y_ref, h_ref = SR.ssd_scan_ref(*ins)
         name = str(dt_).replace("torch.", "")
         shape = f"B={B} T={T} H={H} P={P} N={N} {name} {layout}"
@@ -731,9 +748,12 @@ def check_ssd(device):
         print(f"ssd_scan {label} {shape}: y max|d|={ry[1]:.3g} row rel "
               f"L2={ry[2]:.3g} elem={ry[3]:.3g}; state max|d|={rh[1]:.3g} "
               f"row rel L2={rh[2]:.3g} elem={rh[3]:.3g} "
-              f"{'ok' if ry[0] and rh[0] else 'MISMATCH'}")
+              f"{'ok' if ry[0] and rh[0] else 'MISMATCH'}; second run "
+              f"{'bitwise equal' if bitwise else 'DIFFERS'}")
         check(ry[0] and rh[0], f"ssd_scan disagrees with its plain version "
                                f"({label}, {shape})")
+        check(bitwise, f"ssd_scan does not repeat bit for bit ({label}, "
+                       f"{shape})")
         for fault in ssd_faults(T):
             fy, fh = plain_ssd(*ins, fault)
             fy, fh = ssd_agreement(fy, y_ref), ssd_agreement(fh, h_ref)
@@ -810,7 +830,13 @@ def check_refusals(device):
                 scan(64, 64)[4]), ValueError),
             ("scan dt float32, xh bfloat16", lambda: SO.ssd_scan(
                 *scan(64, 64, torch.bfloat16)[:1],
-                *scan(64, 64)[1:]), TypeError)):
+                *scan(64, 64)[1:]), TypeError),
+            # B and C at the stride of an odd e (odd H): not 16-byte
+            # aligned, so the bf16 body's TMA cannot read them
+            ("scan bfloat16 B and C at an odd stride", lambda: SO.ssd_scan(
+                *ssd_inputs(torch.Generator(device=device).manual_seed(5), 1,
+                            8, 3, 64, 64, torch.bfloat16, "model", device)),
+             ValueError)):
         try:
             call()
         except exc as e:
@@ -990,10 +1016,11 @@ def time_kernels(device, errs, launches):
                 "max_abs_err": errs["ssd_scan"], "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "note": "no single PyTorch call computes the scan; the "
-                        "operations are counted at the bf16 rate of the "
-                        "inputs, while the kernel runs them as float32 "
-                        f"FMAs ({ops / 67e12 * 1e3:.4f} ms at the card's "
-                        "67 TFLOP/s)",
+                        "operations are the function's, counted at the "
+                        "bf16 rate of the inputs, while the kernel's wgmma "
+                        "body runs each product with a float32 operand "
+                        "as three bf16 products (10 where the function "
+                        "has 4)",
                 "shape": f"B={B} T={T} H={H} P={P} N={N} bf16, B and C "
                          f"strided, final state written"})
 
@@ -2327,6 +2354,7 @@ def main() -> None:
     print(f"setup: kernels built in {time.perf_counter() - t0:.1f} s")
     print_ptxas("flash_fwd", "hopper")
     print_ptxas("flash_bwd", "hopper")
+    print_ptxas("ssd_scan", "hopper")
 
     errs = check_kernels(device)
     errs.update(check_bwd(device))

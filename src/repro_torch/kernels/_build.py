@@ -2,10 +2,13 @@
 
 Each kernel's ``csrc/*.cu`` compiles for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
-root of the checkout, on first use. The file name carries a hash of the
-source, the headers beside it and the flags, so an edited source or header
-builds anew. A missing ``nvcc`` or a failed build raises: nothing falls
-back to the plain versions.
+root of the checkout, on first use. Headers shared by several kernels
+live in ``csrc/`` beside this file, which nvcc searches after the
+source's own directory. The file name carries a hash of the source, of
+the headers beside it, of every header it includes (from either place)
+and of the flags, so an edited source or header builds anew. A missing
+``nvcc`` or a failed build raises: nothing falls back to the plain
+versions.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,6 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 KERNELS_DIR = Path(__file__).resolve().parent
+SHARED_CSRC = "csrc"   # headers shared by several kernels, under KERNELS_DIR
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,12 +56,34 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _included(src: Path) -> list:
+    """The headers that ``src`` includes with quotes, and those they
+    include, each found as nvcc finds it: beside the including file, else
+    in the shared ``csrc/``. One that is in neither place is left out."""
+    found, todo = [], [src]
+    while todo:
+        at = todo.pop()
+        for name in _INCLUDE.findall(at.read_text()):
+            for path in (at.parent / name, KERNELS_DIR / SHARED_CSRC / name):
+                if path.is_file():
+                    if path not in found:
+                        found.append(path)
+                        todo.append(path)
+                    break
+    return found
+
+
 def _target(name: str) -> Path:
     """The library's path: its name carries a hash of the source, of the
-    headers beside it (``*.cuh`` in its ``csrc/``) and of the flags."""
+    headers beside it (``*.cuh`` in its ``csrc/``), of the headers it
+    includes and of the flags."""
     src = KERNELS_DIR / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    headers = sorted(set(src.parent.glob("*.cuh")) | set(_included(src)))
+    for header in headers:
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -66,7 +93,8 @@ def _start(name: str, nvcc: str):
     """Start one nvcc into a temporary file; returns (process, tmp, target)."""
     target = _target(name)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(KERNELS_DIR / SOURCES[name])]
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(KERNELS_DIR / SHARED_CSRC),
+           "-o", str(tmp), str(KERNELS_DIR / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target

@@ -1,13 +1,16 @@
-// Building blocks of the bf16 flash-attention kernels for Hopper (sm_90a),
-// shared by the forward (flash_fwd.cu, B1) and the backward (flash_bwd.cu,
-// B2a and B2b): mbarriers, TMA loads and stores through 4-D tensor maps,
-// wgmma on bf16 with float32 accumulators, the swizzled tile layout both
-// name, and the order of the persistent blocks' work tiles.
+// Building blocks of the port's bf16 kernels for Hopper (sm_90a), shared
+// by the flash-attention forward (flash_attention/csrc/flash_fwd.cu, B1)
+// and backward (flash_bwd.cu, B2a and B2b) and the Mamba2 SSD scan
+// (ssm_scan/csrc/ssd_scan.cu, B4): mbarriers, TMA loads and stores through
+// 4-D tensor maps, wgmma on bf16 with float32 accumulators, the swizzled
+// tile layout both name, and the order of the persistent blocks' work
+// tiles. nvcc finds this file through the -I that kernels/_build.py gives
+// it, and the hash in each library's name covers it.
 //
-// Every kernel built on them has the same shape: persistent blocks of three
+// Every kernel built on them has the same shape: blocks of three
 // warpgroups, the first a producer whose first warp keeps TMA loads in
 // flight into mbarrier-guarded stages, the other two consumers of 64 rows
-// each of a 128-row work tile, whose products run on wgmma.
+// each, whose products run on wgmma.
 
 #pragma once
 
@@ -377,16 +380,18 @@ EncodeTiled encode_tiled() {
 // The 4-D (hd, heads, S, B) view of a strided (B, S, heads, hd) bf16
 // tensor, read in boxes of [rows][CW]. A dimension of extent 1 is never
 // stepped over; it gets the stride of a packed tensor, which TMA accepts
-// whatever the caller's tensor says.
+// whatever the caller's tensor says. A tensor of fewer than HD columns
+// (`cols`) is read in the same boxes, its columns past `cols` as zeros.
 template <int HD>
 bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
-                long long sh, long long ss, long long sb, int rows) {
+                long long sh, long long ss, long long sb, int rows,
+                int cols = HD) {
   using C = Box<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                            (cuuint64_t)sb * 2};
-  cuuint64_t packed = HD * 2;
+  cuuint64_t packed = (cuuint64_t)cols * 2;
   for (int i = 0; i < 3; ++i) {
     if (dims[i + 1] == 1) strides[i] = packed;
     packed = strides[i] * dims[i + 1];

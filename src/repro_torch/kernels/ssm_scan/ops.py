@@ -56,6 +56,24 @@ def _check(xh, dt, A, Bm, Cm) -> None:
                          f"takes {SHAPES} only")
     if min(B, T, H) < 1:
         raise ValueError("empty batch, sequence or heads")
+    if xh.dtype == torch.bfloat16:
+        for name, t in (("xh", xh), ("Bm", Bm), ("Cm", Cm)):
+            if not _tma_readable(t):
+                raise ValueError(
+                    f"bfloat16 {name} (strides {t.stride()}) must be "
+                    f"16-byte aligned, contiguous in its last dimension, "
+                    f"with its other strides multiples of 8 elements: the "
+                    f"bf16 body reads it by TMA")
+
+
+def _tma_readable(t) -> bool:
+    """Whether the bf16 body's tensor maps can read ``t``: a 16-byte
+    aligned base, unit stride in the last dimension and positive strides
+    of multiples of 8 elements (16 bytes) in the others, where the extent
+    is above 1 (the kernel gives an extent of 1 a packed stride)."""
+    *outer, last = zip(t.shape, t.stride())
+    return t.data_ptr() % 16 == 0 and last[1] == 1 and all(
+        st > 0 and st % 8 == 0 for n, st in outer if n > 1)
 
 
 def _launch(xh, dt, A, Bm, Cm, return_state: bool = True):
@@ -115,8 +133,10 @@ def ssd_scan(xh, dt, A, Bm, Cm, return_state: bool = False):
     ``return_state``, also the final state (B, H, P, N) float32. A CPU
     tensor goes to the plain version; a CUDA tensor to the kernel (B4),
     which reads every input through its strides and takes (P, N) in
-    :data:`SHAPES`. Where autograd wants a gradient, the kernel runs under
-    :class:`SSDScan`."""
+    :data:`SHAPES`: float32 inputs take its CUDA-core body, bfloat16 ones
+    its wgmma body, which needs xh, Bm and Cm in a layout that TMA reads
+    (:func:`_tma_readable`). Where autograd wants a gradient, the kernel
+    runs under :class:`SSDScan`."""
     if xh.device.type == "cpu":
         y, state = ssd_scan_ref(xh, dt, A, Bm, Cm)
     elif xh.device.type != "cuda":

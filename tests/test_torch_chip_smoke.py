@@ -154,3 +154,105 @@ def test_ptxas_report_fails_on_stack_spill_or_serialised_wgmma(log, faulty):
     if "hopper" in log:
         assert report[0].startswith(_PTXAS_NAME)
         assert "Used 168 registers" in report[0]
+
+
+# B4's cases: the bf16 ones run the wgmma body
+SSD_BF16_CASES = [c for c in CS.ssd_cases() if c[6] == torch.bfloat16]
+
+
+def _ssd_id(case):
+    label, B, T, H, P, N, dt, layout = case
+    return f"{label}-B{B}-T{T}-H{H}-P{P}-N{N}-{layout}".replace(" ", "_")
+
+
+def test_ssd_bf16_cases_cover_the_wgmma_body():
+    """Whole chunks (T = 128), the zamba2 prefill contiguous and strided,
+    one batch row, an odd H (a block holding one head) at both widths, and
+    ragged chunks."""
+    shapes = {(c[4], c[5]) for c in SSD_BF16_CASES}
+    assert shapes == set(CS.SO.SHAPES)
+    assert any(c[2] == 128 for c in SSD_BF16_CASES)
+    assert {c[7] for c in SSD_BF16_CASES if c[2] == 512} \
+        >= {"model", "contiguous"}
+    assert any(c[1] == 1 for c in SSD_BF16_CASES)
+    assert {(c[4], c[5]) for c in SSD_BF16_CASES if c[3] % 2} \
+        == set(CS.SO.SHAPES)
+    assert any(c[2] % 64 for c in SSD_BF16_CASES)
+    assert {c[7] for c in SSD_BF16_CASES} == {"model", "contiguous",
+                                              "strided"}
+
+
+@pytest.mark.parametrize("case", SSD_BF16_CASES,
+                         ids=[_ssd_id(c) for c in SSD_BF16_CASES])
+def test_ssd_bf16_cases_are_layouts_the_tma_body_reads(case):
+    """Every bf16 case hands the kernel xh, B and C that its tensor maps
+    read, as the Mamba2 block does; the refusal case's do not."""
+    label, B, T, H, P, N, dt, layout = case
+    gen = torch.Generator().manual_seed(0)
+    ins = CS.ssd_inputs(gen, B, T, H, P, N, dt, layout, "cpu")
+    CS.SO._check(*ins)
+    if layout != "contiguous":
+        assert not ins[3].is_contiguous()
+    bad = CS.ssd_inputs(gen, 1, 8, 3, 64, 64, dt, "model", "cpu")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        CS.SO._check(*bad)
+
+
+SSD_SMALL = [c for c in SSD_BF16_CASES if c[1] * c[2] * c[3] <= 2048]
+
+
+@pytest.mark.parametrize("case", SSD_SMALL,
+                         ids=[_ssd_id(c) for c in SSD_SMALL])
+def test_ssd_planted_faults_are_rejected(case):
+    """On the CPU the plain scan passes ``ssd_agreement`` against itself,
+    and the same limits reject every planted fault that changes the scan
+    at this length."""
+    label, B, T, H, P, N, dt, layout = case
+    gen = torch.Generator().manual_seed(3)
+    ins = CS.ssd_inputs(gen, B, T, H, P, N, dt, layout, "cpu")
+    y_ref, h_ref = CS.SR.ssd_scan_ref(*ins)
+    assert CS.ssd_agreement(y_ref, y_ref)[0]
+    assert CS.ssd_agreement(h_ref, h_ref)[0]
+    faults = CS.ssd_faults(T)
+    assert len(faults) == (6 if T > 64 else 4)
+    for fault in faults:
+        fy, fh = CS.plain_ssd(*ins, fault)
+        caught = not (CS.ssd_agreement(fy, y_ref)[0]
+                      and CS.ssd_agreement(fh, h_ref)[0])
+        assert caught, f"the limits pass '{fault}'"
+
+
+_SSD_HOPPER = ("_ZN44_GLOBAL__N__59bf1801_11_ssd_scan_cu_ssd_scan6hopper10"
+               "ssd_kernelE14CUtensorMap_stS1_S1_S1_NS_6ParamsEii")
+_SSD_SIMT = "_ZN12_GLOBAL__N_110ssd_kernelIfLi64ELi64EEEvNS_6ParamsE"
+
+
+def _ssd_log(name, stack=0, spill=0):
+    return [f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {stack} bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads",
+            "ptxas info    : Used 168 registers, used 16 barriers"]
+
+
+@pytest.mark.parametrize("hopper, simt, faulty", [
+    ({}, {}, False),
+    ({"spill": 8}, {}, True),
+    ({"stack": 16}, {}, True),
+    ({}, {"stack": 16}, False),
+    (None, {}, True),
+], ids=["clean", "spill", "stack", "float32-body-not-checked",
+        "no-wgmma-body"])
+def test_ptxas_report_checks_the_ssd_wgmma_body(hopper, simt, faulty):
+    """``print_ptxas("ssd_scan", "hopper")`` reads only the bf16 body,
+    which sits in namespace ``hopper`` and keeps "ssd_kernel" in its name
+    (the profile's "scan kernel" group); the float32 body is not held to
+    it, and a build without the bf16 body fails."""
+    lines = _ssd_log(_SSD_SIMT, **simt)
+    if hopper is not None:
+        lines += _ssd_log(_SSD_HOPPER, **hopper)
+    report, faults = CS.ptxas_report("\n".join(lines), "hopper")
+    assert bool(faults) == faulty
+    assert all("hopper" in r for r in report)
+    assert "ssd_kernel" in _SSD_HOPPER

@@ -264,6 +264,34 @@ def test_ssd_scan_input_checks():
         SO._check(xh[:, :0], dt[:, :0], A, Bm[:, :0], Cm[:, :0])
 
 
+def test_ssd_scan_refuses_bf16_layouts_tma_cannot_read():
+    """The bf16 body reads xh, Bm and Cm by TMA: a base that is not
+    16-byte aligned, a stride that is not a multiple of 8 elements or a
+    last dimension that is not contiguous is refused before a launch. The
+    float32 body reads any strides, and an extent of 1 may have any
+    stride."""
+    bf = torch.bfloat16
+    xh, dt, A, Bm, Cm = (torch.from_numpy(a) for a in
+                         scan_inputs(2, 5, 3, 64, 64))
+    xh, dt, Bm, Cm = xh.to(bf), dt.to(bf), Bm.to(bf), Cm.to(bf)
+    SO._check(xh, dt, A, Bm, Cm)
+    # B and C cut from one (B, T, 2N + 1) tensor: an odd row stride
+    wide = torch.zeros(2, 5, 2 * 64 + 1, dtype=bf)
+    with pytest.raises(ValueError, match="Bm .* 16-byte aligned"):
+        SO._check(xh, dt, A, wide[..., :64], Cm)
+    SO._check(xh.float(), dt.float(), A, wide[..., :64].float(), Cm.float())
+    # a base one element past an aligned one
+    off = torch.zeros(2, 5, 65, dtype=bf)[..., 1:]
+    with pytest.raises(ValueError, match="Cm .* 16-byte aligned"):
+        SO._check(xh, dt, A, Bm, off)
+    # the head dim not contiguous
+    with pytest.raises(ValueError, match="xh .* contiguous in its last"):
+        SO._check(torch.zeros(2, 5, 64, 3, dtype=bf).transpose(-1, -2), dt,
+                  A, Bm, Cm)
+    # one step of one sequence: no stride but the last is ever stepped over
+    SO._check(xh[:1, :1], dt[:1, :1], A, wide[:1, :1, :64], Cm[:1, :1])
+
+
 # ---------------------------------------------------------------------------
 # the Mamba2 block
 # ---------------------------------------------------------------------------

@@ -194,6 +194,25 @@ def test_build_target_changes_with_a_header(monkeypatch, tmp_path):
 
 
 
+def test_build_target_changes_with_the_shared_header(monkeypatch, tmp_path):
+    """``csrc/hopper.cuh`` sits beside ``_build.py``, shared by B1, B2 and
+    B4: an edit to it changes the library path of every kernel whose
+    source includes it, and of no other. Run on a copy of the sources."""
+    import shutil
+    src = _build.KERNELS_DIR
+    for rel in [*_build.SOURCES.values(), "csrc/hopper.cuh"]:
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src / rel, tmp_path / rel)
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    header = tmp_path / "csrc" / "hopper.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    changed = {n for n in _build.SOURCES if _build._target(n) != before[n]}
+    assert changed == {"flash_fwd", "flash_bwd", "ssd_scan"}
+    for n in changed:
+        assert _build._included(tmp_path / _build.SOURCES[n]) == [header]
+
+
 def test_build_log_is_read_back_beside_a_cached_library(monkeypatch,
                                                          tmp_path):
     """nvcc's output stays beside the library, so a later process that
