@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/**/csrc``, holds each
 kernel against its plain PyTorch version on the card (the backward kernels
-and the SSD scan also against planted faults and against a second run, bit
+and both scans also against planted faults and against a second run, bit
 for bit), then
 drives the port's three main paths at full width with random weights from
 a seed, and shows from the launch counters, set to 0 just before each path
@@ -1048,10 +1048,12 @@ def time_kernels(device, errs, launches):
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
                 "note": "no single PyTorch call computes the scan; the "
-                        "operations are counted at the bf16 rate, while the "
-                        "recurrence runs in float32 on the CUDA cores "
-                        f"({ops / 67e12 * 1e3:.4f} ms at the card's 67 "
-                        "TFLOP/s)",
+                        "operations are the sequential recurrence's, counted "
+                        "at the bf16 rate, while the kernel's wgmma body runs "
+                        "the chunked form: 64-step chunks on the tensor "
+                        "cores, each float32 operand as three bf16 terms, "
+                        "and the diagonal 16-step blocks and the decays as "
+                        "float32 on the CUDA cores",
                 "shape": f"B={B} T={T} H={H} N={N} bf16 r/k/v, float32 w "
                          f"and u, final state written"})
     return out
@@ -1797,6 +1799,8 @@ RWKV_F32_REL_L2 = 5e-3
 RWKV_LAYER_REL_L2 = 1e-3
 RWKV_RAGGED = 500     # a prompt length that is not a whole 64-step chunk
 
+# cases whose label starts so take extreme decays (rwkv_inputs)
+RWKV_EXTREME = "extreme decays"
 RWKV_FAULTS = ("bonus u left out", "w applied after the kv add",
                "output read after the update", "final state not written",
                "state zero-padded to a whole chunk")
@@ -1854,16 +1858,29 @@ def rwkv_cases():
             ("a ragged tail", 3, 100, 8, bf, "model"),
             ("a ragged tail", 3, 100, 8, f32, "strided"),
             ("smoke width", 2, 130, 2, f32, "model"),
-            ("smoke width", 2, 130, 2, bf, "strided")]
+            ("smoke width", 2, 130, 2, bf, "strided"),
+            (RWKV_EXTREME, 2, 130, 8, bf, "model"),
+            (f"{RWKV_EXTREME} at the rwkv6-3b prefill", 4, 512, 40, bf,
+             "model")]
 
 
-def rwkv_inputs(gen, B, T, H, dtype, layout, device, N=64):
+def rwkv_case_inputs(gen, case, device):
+    """The inputs of one of rwkv_cases()."""
+    label, B, T, H, dtype, layout = case
+    return rwkv_inputs(gen, B, T, H, dtype, layout, device,
+                       extreme=label.startswith(RWKV_EXTREME))
+
+
+def rwkv_inputs(gen, B, T, H, dtype, layout, device, N=64, extreme=False):
     """(r, k, v, w, u) as the time mix makes them: r, k and v of unit
     scale in ``dtype``; w = exp(-exp(-0.5 + z)) and u of scale H^-1/2 in
     float32. "model": each a contiguous (B, T, H, N) tensor, as the time
     mix's projections give them. "strided": r, k and v slices of one (B, T,
     3, H, 2N) tensor (k every other element), w a transposed (B, H, T, N)
-    tensor and u a transposed (N, H) one."""
+    tensor and u a transposed (N, H) one. ``extreme``: w = exp(-exp(3 z -
+    3)), from 1 to values that underflow to 0, and exactly 0 at every 7th
+    channel (0, 7, 14, ...) and exactly 1 at channels 1, 10, 19, ...:
+    decays whose running products underflow or never decay."""
     if layout == "model":
         r, k, v = (torch.randn(B, T, H, N, generator=gen, device=device)
                    .to(dtype) for _ in range(3))
@@ -1877,19 +1894,35 @@ def rwkv_inputs(gen, B, T, H, dtype, layout, device, N=64):
         z = torch.randn(B, H, T, N, generator=gen,
                         device=device).transpose(1, 2)
         u = torch.randn(N, H, generator=gen, device=device).t()
-    return r, k, v, torch.exp(-torch.exp(z - 0.5)), u * H ** -0.5
+    if not extreme:
+        return r, k, v, torch.exp(-torch.exp(z - 0.5)), u * H ** -0.5
+    w = torch.exp(-torch.exp(3 * z - 3))
+    w[..., ::7] = 0.0
+    w[..., 1::9] = 1.0
+    return r, k, v, w, u * H ** -0.5
+
+
+def rwkv_repeat(scan, ins):
+    """``scan(*ins)`` twice: (the first run's (y, state), whether the
+    second run gave the same bits)."""
+    y, S = scan(*ins)
+    y2, S2 = scan(*ins)
+    if y.is_cuda:
+        torch.cuda.synchronize()
+    return (y, S), torch.equal(y, y2) and torch.equal(S, S2)
 
 
 def check_rwkv(device):
     """B5 against the plain scan in every case, y and the final state; the
-    same limits must reject each planted fault that changes the result.
-    Returns the max abs error at the bf16 rwkv6-3b prefill case."""
+    same limits must reject each planted fault that changes the result,
+    and a second run on the same inputs must give the same bits. Returns
+    the max abs error at the bf16 rwkv6-3b prefill case."""
     gen = torch.Generator(device=device).manual_seed(5)
     err = 0.0
-    for label, B, T, H, dt_, layout in rwkv_cases():
-        ins = rwkv_inputs(gen, B, T, H, dt_, layout, device)
-        y, S = RO.rwkv6_scan(*ins)
-        torch.cuda.synchronize()
+    for case in rwkv_cases():
+        label, B, T, H, dt_, layout = case
+        ins = rwkv_case_inputs(gen, case, device)
+        (y, S), bitwise = rwkv_repeat(RO.rwkv6_scan, ins)
         y_ref, S_ref = RR.rwkv6_scan_ref(*ins)
         name = str(dt_).replace("torch.", "")
         shape = f"B={B} T={T} H={H} N=64 {name} {layout}"
@@ -1897,9 +1930,12 @@ def check_rwkv(device):
         print(f"rwkv6_scan {label} {shape}: y max|d|={ry[1]:.3g} row rel "
               f"L2={ry[2]:.3g} elem={ry[3]:.3g}; state max|d|={rs[1]:.3g} "
               f"row rel L2={rs[2]:.3g} elem={rs[3]:.3g} "
-              f"{'ok' if ry[0] and rs[0] else 'MISMATCH'}")
+              f"{'ok' if ry[0] and rs[0] else 'MISMATCH'}; second run "
+              f"{'bitwise equal' if bitwise else 'DIFFERS'}")
         check(ry[0] and rs[0], f"rwkv6_scan disagrees with its plain "
                                f"version ({label}, {shape})")
+        check(bitwise, f"rwkv6_scan does not repeat bit for bit ({label}, "
+                       f"{shape})")
         for fault in rwkv_faults(T):
             fy, fs = plain_rwkv(*ins, fault)
             fy, fs = ssd_agreement(fy, y_ref), ssd_agreement(fs, S_ref)
@@ -2355,6 +2391,7 @@ def main() -> None:
     print_ptxas("flash_fwd", "hopper")
     print_ptxas("flash_bwd", "hopper")
     print_ptxas("ssd_scan", "hopper")
+    print_ptxas("rwkv6_scan", "hopper")
 
     errs = check_kernels(device)
     errs.update(check_bwd(device))

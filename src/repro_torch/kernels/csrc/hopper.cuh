@@ -1,16 +1,19 @@
 // Building blocks of the port's bf16 kernels for Hopper (sm_90a), shared
 // by the flash-attention forward (flash_attention/csrc/flash_fwd.cu, B1)
-// and backward (flash_bwd.cu, B2a and B2b) and the Mamba2 SSD scan
-// (ssm_scan/csrc/ssd_scan.cu, B4): mbarriers, TMA loads and stores through
-// 4-D tensor maps, wgmma on bf16 with float32 accumulators, the swizzled
-// tile layout both name, and the order of the persistent blocks' work
-// tiles. nvcc finds this file through the -I that kernels/_build.py gives
-// it, and the hash in each library's name covers it.
+// and backward (flash_bwd.cu, B2a and B2b), the Mamba2 SSD scan
+// (ssm_scan/csrc/ssd_scan.cu, B4) and the RWKV6 scan
+// (rwkv6_scan/csrc/rwkv6_scan.cu, B5): mbarriers, TMA loads and stores
+// through 4-D tensor maps, wgmma on bf16 with float32 accumulators, the
+// swizzled tile layout both name, fragments to and from [64][64] tiles,
+// and the order of the persistent blocks' work tiles. nvcc finds this file
+// through the -I that kernels/_build.py gives it, and the hash in each
+// library's name covers it.
 //
 // Every kernel built on them has the same shape: blocks of three
 // warpgroups, the first a producer whose first warp keeps TMA loads in
 // flight into mbarrier-guarded stages, the other two consumers of 64 rows
-// each, whose products run on wgmma.
+// each, whose products run on wgmma (B5's second consumer forms operands
+// for the first instead).
 
 #pragma once
 
@@ -332,6 +335,66 @@ __device__ __forceinline__ void store_rows(const CUtensorMap* map, const bf16* t
   for (int x = 0; x < C::NBOX; ++x)
     tma_store(map, tile + x * BLOCK_M * C::CW + tile_row * C::CW, x * C::CW, head,
               row, b);
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// the 128 threads of one warpgroup, on named barrier `id` (B4: consumer
+// warpgroup `id` - 1)
+__device__ __forceinline__ void sync_consumer(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+// Lane l's row address in a [64][64] tile for ldmatrix / stmatrix of the
+// warp's 16 rows, columns [16 kk, 16 kk + 16): matrix i = l / 8 covers rows
+// + 8 (i % 2) and columns + 8 (i / 2), the order of an A fragment's
+// registers
+__device__ __forceinline__ uint32_t frag_addr(uint32_t tile, int kk, int warp,
+                                              int lane) {
+  const int i = lane / 8, row = 16 * warp + 8 * (i % 2) + lane % 8;
+  const int piece = 2 * kk + i / 2;  // 16-byte piece of the row
+  return tile + row * 128 + ((piece ^ (row & 7)) << 4);
+}
+
+// the A fragments of this warp's 16 rows of a [64][64] tile, 4 x 16 columns
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t tile, int warp,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+                 : "r"(frag_addr(tile, kk, warp, lane)) : "memory");
+}
+
+// the inverse: fragments laid out as load_a reads them, into the tile
+__device__ __forceinline__ void store_a(uint32_t tile, const uint32_t (&a)[4][4],
+                                        int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(frag_addr(tile, kk, warp, lane)), "r"(a[kk][0]),
+                    "r"(a[kk][1]), "r"(a[kk][2]), "r"(a[kk][3]) : "memory");
+}
+
+// d += A . B, A (64 x 16) and B (16 x 64) both MN-major in shared memory
+__device__ __forceinline__ void mma_tt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+// d += A^T . B over 64 rows, A and B [64][64] tiles read MN-major (B4's
+// x^T (w o B), B5's K~^T V); the start address moves 16 rows a step
+__device__ __forceinline__ void ss_tn(float (&d)[32], uint32_t a, uint32_t b) {
+  const uint64_t da = desc(opaque(a), 8192, 1024, 1), db = desc(opaque(b), 8192, 1024, 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_tt(d, da + 128 * kk, db + 128 * kk);
 }
 
 // One work tile: BLOCK_M query rows of one (b, h). The tiles are numbered

@@ -256,3 +256,130 @@ def test_ptxas_report_checks_the_ssd_wgmma_body(hopper, simt, faulty):
     assert bool(faults) == faulty
     assert all("hopper" in r for r in report)
     assert "ssd_kernel" in _SSD_HOPPER
+
+
+# B5's cases: the bf16 ones run the wgmma body; two take extreme decays
+RWKV_EXTREME_CASES = [c for c in CS.rwkv_cases()
+                      if c[0].startswith(CS.RWKV_EXTREME)]
+
+
+def test_rwkv_cases_add_extreme_decays_at_two_sizes():
+    """The extreme-decay cases are bf16 in the model's layout, at (2, 130,
+    8) and at rwkv6-3b's prefill (4, 512, 40); they come after the earlier
+    cases, whose inputs the shared generator keeps as they were."""
+    assert [c[1:] for c in RWKV_EXTREME_CASES] == [
+        (2, 130, 8, torch.bfloat16, "model"),
+        (4, 512, 40, torch.bfloat16, "model")]
+    cases = CS.rwkv_cases()
+    assert cases[-2:] == RWKV_EXTREME_CASES
+    assert sum(c[5] == "strided" for c in cases) == 7
+
+
+def test_extreme_decays_hold_exact_zeros_and_ones():
+    """Every 7th channel decays to exactly 0, channels 1, 10, 19, ... not
+    at all (exactly 1), and the rest range from near 1 to underflow."""
+    gen = torch.Generator().manual_seed(5)
+    r, k, v, w, u = CS.rwkv_case_inputs(gen, RWKV_EXTREME_CASES[0], "cpu")
+    assert r.dtype == k.dtype == v.dtype == torch.bfloat16
+    assert w.dtype == torch.float32 and w.is_contiguous()
+    ones = torch.arange(64) % 9 == 1
+    zeros = (torch.arange(64) % 7 == 0) & ~ones
+    assert (w[..., ones] == 1).all() and (w[..., zeros] == 0).all()
+    rest = w[..., ~(ones | zeros)]
+    assert rest.max() > 0.9 and (rest == 0).any()
+    model = CS.rwkv_inputs(torch.Generator().manual_seed(5), 2, 130, 8,
+                           torch.bfloat16, "model", "cpu")
+    assert (model[3] > 0).all() and (model[3] < 1).all()
+
+
+def test_rwkv_planted_faults_are_rejected_at_extreme_decays():
+    """On the CPU the plain scan passes ``ssd_agreement`` against itself
+    at the small extreme-decay case, and the same limits reject every
+    planted fault (T = 130 is not a whole chunk, so all five)."""
+    gen = torch.Generator().manual_seed(5)
+    ins = CS.rwkv_case_inputs(gen, RWKV_EXTREME_CASES[0], "cpu")
+    y_ref, S_ref = CS.RR.rwkv6_scan_ref(*ins)
+    assert CS.ssd_agreement(y_ref, y_ref)[0]
+    assert CS.ssd_agreement(S_ref, S_ref)[0]
+    faults = CS.rwkv_faults(130)
+    assert len(faults) == 5
+    for fault in faults:
+        fy, fs = CS.plain_rwkv(*ins, fault)
+        caught = not (CS.ssd_agreement(fy, y_ref)[0]
+                      and CS.ssd_agreement(fs, S_ref)[0])
+        assert caught, f"the limits pass '{fault}'"
+
+
+def _flaky(part):
+    """A scan whose second run differs from its first in the last bit of
+    one element of ``part`` (0: y, 1: the state)."""
+    calls = []
+
+    def scan(*ins):
+        out = list(CS.RR.rwkv6_scan_ref(*ins))
+        if calls:
+            out[part] = out[part].clone()
+            out[part].view(-1)[7] = torch.nextafter(
+                out[part].view(-1)[7], torch.tensor(float("inf")))
+        calls.append(1)
+        return tuple(out)
+    return scan
+
+
+@pytest.mark.parametrize("part", [None, 0, 1], ids=["same", "y", "state"])
+def test_rwkv_repeat_sees_one_bit_in_y_or_the_state(part):
+    """``rwkv_repeat`` returns the first run and whether the second gave
+    the same bits: one ulp of one element of y or of the state is seen."""
+    gen = torch.Generator().manual_seed(0)
+    ins = CS.rwkv_inputs(gen, 1, 9, 2, torch.bfloat16, "model", "cpu")
+    scan = CS.RR.rwkv6_scan_ref if part is None else _flaky(part)
+    (y, S), same = CS.rwkv_repeat(scan, ins)
+    y_ref, S_ref = CS.RR.rwkv6_scan_ref(*ins)
+    assert torch.equal(y, y_ref) and torch.equal(S, S_ref)
+    assert same == (part is None)
+
+
+@pytest.mark.parametrize("part", [None, 1], ids=["repeats", "differs"])
+def test_check_rwkv_fails_a_scan_that_does_not_repeat(monkeypatch, part):
+    """``check_rwkv`` runs each case twice through the wrapper and fails
+    the run when the second differs, even where both agree with the plain
+    scan (here on the CPU, at one small case)."""
+    monkeypatch.setattr(CS, "rwkv_cases", lambda: [
+        ("tiny", 1, 70, 2, torch.bfloat16, "model")])
+    scan = CS.RR.rwkv6_scan_ref if part is None else _flaky(part)
+    monkeypatch.setattr(CS.RO, "rwkv6_scan", scan)
+    if part is None:
+        CS.check_rwkv("cpu")
+    else:
+        with pytest.raises(SystemExit):
+            CS.check_rwkv("cpu")
+
+
+_RWKV_HOPPER = ("_ZN46_GLOBAL__N__7ed12bfc_13_rwkv6_scan_cu_0a5a1a2b6hopper12"
+                "rwkv6_kernelE14CUtensorMap_stS1_S1_S1_NS_6ParamsEi")
+_RWKV_SIMT = ("_ZN46_GLOBAL__N__7ed12bfc_13_rwkv6_scan_cu_0a5a1a2b12"
+              "rwkv6_kernelIfEEvNS_6ParamsE")
+
+
+@pytest.mark.parametrize("hopper, simt, faulty", [
+    ({}, {}, False),
+    ({"spill": 120}, {}, True),
+    ({"stack": 256}, {}, True),
+    ({}, {"stack": 16}, False),
+    (None, {}, True),
+], ids=["clean", "spill", "stack", "float32-body-not-checked",
+        "no-wgmma-body"])
+def test_ptxas_report_checks_the_rwkv6_wgmma_body(hopper, simt, faulty):
+    """``print_ptxas("rwkv6_scan", "hopper")``, which ``main`` runs, reads
+    only B5's bf16 body (namespace ``hopper``, "rwkv6_kernel" kept in its
+    name for the profile's "scan kernel" group); the float32 body is not
+    held to it, and a build without the bf16 body fails."""
+    assert 'print_ptxas("rwkv6_scan", "hopper")' in Path(
+        CS.__file__).read_text()
+    lines = _ssd_log(_RWKV_SIMT, **simt)
+    if hopper is not None:
+        lines += _ssd_log(_RWKV_HOPPER, **hopper)
+    report, faults = CS.ptxas_report("\n".join(lines), "hopper")
+    assert bool(faults) == faulty
+    assert all("hopper" in r for r in report)
+    assert "rwkv6_kernel" in _RWKV_HOPPER
