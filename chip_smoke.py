@@ -1037,6 +1037,16 @@ def time_kernels(device, errs, launches):
     # r^T times it (a multiply and an add), w o S, + kv
     ops = 7 * N * N * B * T * H
     b_ms, b_by = bound(nbytes, ops)
+    # the bf16 body runs one block per (b, h) and one block an SM: its time
+    # at T = 512 for one block alone, one on every SM, rwkv6-3b's B * H and
+    # two on every SM
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    by_blocks = []
+    for Bw, Hw in ((1, 1), (1, sms), (B, H), (2, sms)):
+        wsets = [rwkv_inputs(gen, Bw, T, Hw, bf, "model", device)
+                 for _ in range(2)]
+        by_blocks.append({"blocks": Bw * Hw, "ms": time_ms(
+            lambda *a: RO.rwkv6_scan(*a), wsets)})
     out.append({"name": "rwkv6_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/rwkv6_scan/csrc/"
                           "rwkv6_scan.cu",
@@ -1055,7 +1065,8 @@ def time_kernels(device, errs, launches):
                         "and the diagonal 16-step blocks and the decays as "
                         "float32 on the CUDA cores",
                 "shape": f"B={B} T={T} H={H} N={N} bf16 r/k/v, float32 w "
-                         f"and u, final state written"})
+                         f"and u, final state written",
+                "ms_by_blocks": by_blocks})
     return out
 
 

@@ -9,11 +9,11 @@
 // through the -I that kernels/_build.py gives it, and the hash in each
 // library's name covers it.
 //
-// Every kernel built on them has the same shape: blocks of three
-// warpgroups, the first a producer whose first warp keeps TMA loads in
-// flight into mbarrier-guarded stages, the other two consumers of 64 rows
-// each, whose products run on wgmma (B5's second consumer forms operands
-// for the first instead).
+// Every kernel built on them has the same shape: a producer warpgroup
+// whose first warp keeps TMA loads in flight into mbarrier-guarded
+// stages, then consumer warpgroups whose products run on wgmma (two of 64
+// rows each; B5 has two that form operands and one that runs the
+// products).
 
 #pragma once
 
@@ -151,6 +151,29 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A float32 pair cut into K packed bf16 pairs, the terms whose sum a
+// product with a float32 operand runs on (B4, B5): the pair rounded to
+// nearest, then what each step leaves cut to bf16 by truncation (a mask
+// and a byte permute: integer work at the full rate, where a conversion
+// runs at a fraction of it). Each remainder is exact in float32; the first
+// is within 2^-9 of the value, each later one within 2^-7 of the one
+// before, so three terms leave ~2^-23 of the value, near float32's own.
+template <int K>
+__device__ __forceinline__ void split(float a, float b, uint32_t (&out)[K]) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  out[0] = *reinterpret_cast<const uint32_t*>(&v);
+  const float2 f = __bfloat1622float2(v);
+  a -= f.x;
+  b -= f.y;
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+    out[k] = __byte_perm(ua, ub, 0x7632);  // the high halves: the pair truncated
+    a -= __uint_as_float(ua & 0xffff0000u);
+    b -= __uint_as_float(ub & 0xffff0000u);
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -66,12 +66,17 @@
 //   are not written. Nothing is summed with atomics, so a second run
 //   repeats bit for bit. The operand tiles and the ring take ~214 KB of
 //   shared memory, so one block fits an SM, and at rwkv6-3b's prefill 28
-//   SMs run two of the 160 blocks in turn. What holds the body back there
-//   is its ALU work, not the tensor cores or the bytes: the splits into
-//   terms of 17 16-row blocks of operands a chunk and the 136 sums of each
-//   diagonal block, issued by few warps (a warp or two on each scheduler)
-//   whose dependent chains leave most issue slots empty (PERF.md). Four
-//   warpgroups (512 threads) share the registers 48 / 120 / 120 / 224.
+//   SMs run two of the 160 blocks in turn: the call takes two block-times,
+//   and that second wave is the largest factor in its time (PERF.md,
+//   chip_smoke.py's time by block count). Two blocks an SM would need
+//   under 113 KB and 64 registers a thread each; units of half the value
+//   columns would each repeat the decays and the diagonal blocks. Within a
+//   block, what holds the body back is its ALU work, not the tensor cores
+//   or the bytes: the splits into terms of 17 16-row blocks of operands a
+//   chunk and the 136 sums of each diagonal block, issued by few warps (a
+//   warp or two on each scheduler) whose dependent chains leave most issue
+//   slots empty. Four warpgroups (512 threads) share the registers 48 /
+//   120 / 120 / 224.
 // * float32 (the float32 path and its checks): one block of 128 threads
 //   runs one (b, h) and keeps S in registers for the whole scan, each
 //   thread an 8 x 4 tile: rows n = 8i + g (g the lane's row group, 0..7) of
@@ -110,8 +115,6 @@ constexpr int YLD = N + 4;
 // r, k, w, v [C][N]; the partial sums [C][RG][YLD]; c_t's halves [C][2]
 constexpr size_t SMEM_FLOATS = 4 * C * N + C * RG * YLD + 2 * C;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
 struct Params {
   const void* r;     // (B, T, H, N), float32 or bfloat16, as k and v
   const void* k;
@@ -128,7 +131,6 @@ struct Params {
   long long u_sh, u_sn;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(NT) rwkv6_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* rs = reinterpret_cast<float*>(smem4);  // [C][N]
@@ -142,17 +144,16 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(const Params p) {
   const int m0 = CPT * (tid / 32 * (32 / RG) + lane / RG);  // first column
   // staging and output: this thread's element sn of steps tid / N + 2 i
   const int sn = tid % N;
-  const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh + sn * p.r_sn;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + sn * p.k_sn;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + sn * p.v_sn;
+  const float* r = static_cast<const float*>(p.r) + b * p.r_sb + h * p.r_sh + sn * p.r_sn;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh + sn * p.k_sn;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh + sn * p.v_sn;
   const float* w = p.w + b * p.w_sb + h * p.w_sh + sn * p.w_sn;
   const float u = p.u[h * p.u_sh + sn * p.u_sn];
   float* y = p.y + ((long long)b * p.T * p.H + h) * N + sn;
   const long long y_st = (long long)p.H * N;
 
   // the next chunk's elements, loaded ahead; steps past T load step T - 1
-  T pr[IT], pk[IT], pv[IT];
-  float pw[IT];
+  float pr[IT], pk[IT], pv[IT], pw[IT];
   auto prefetch = [&](int t0) {
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
@@ -172,10 +173,10 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
       const int s = tid / N + NT / N * i;  // the same for the whole warp
-      const float rn = to_f32(pr[i]), kn = to_f32(pk[i]);
+      const float rn = pr[i], kn = pk[i];
       rs[s * N + sn] = rn;
       ks[s * N + sn] = kn;
-      vs[s * N + sn] = to_f32(pv[i]);
+      vs[s * N + sn] = pv[i];
       ws[s * N + sn] = pw[i];
       float ruk = rn * u * kn;
 #pragma unroll
@@ -221,14 +222,12 @@ __global__ void __launch_bounds__(NT) rwkv6_kernel(const Params p) {
         make_float4(S[i][0], S[i][1], S[i][2], S[i][3]);
 }
 
-template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * SMEM_FLOATS;
-  auto kernel = rwkv6_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      rwkv6_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.H, p.B), NT, smem, stream>>>(p);
+  rwkv6_kernel<<<dim3(p.H, p.B), NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -314,32 +313,11 @@ __device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
   return v;
 }
 
-// a float32 pair cut into TERMS packed bf16 pairs: the pair rounded to
-// nearest, then what each step leaves cut to bf16 by truncation (a mask
-// and a byte permute: integer work at the full rate, where a conversion
-// runs at a fraction of it). The terms after the first are each within
-// 2^-7 of what is left, so the dropped cross products of a pair of split
-// operands stay near 2^-24, as with rounding every term.
-__device__ __forceinline__ void cut(float a, float b, uint32_t (&out)[TERMS]) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  out[0] = *reinterpret_cast<const uint32_t*>(&v);
-  const float2 f = __bfloat1622float2(v);
-  a -= f.x;
-  b -= f.y;
-#pragma unroll
-  for (int k = 1; k < TERMS; ++k) {
-    const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
-    out[k] = __byte_perm(ua, ub, 0x7632);  // the high halves: the pair truncated
-    a -= __uint_as_float(ua & 0xffff0000u);
-    b -= __uint_as_float(ub & 0xffff0000u);
-  }
-}
-
-// v's TERMS bf16 terms at shared address `at` + `off` of the TERMS tiles,
-// `stride` apart
+// v's TERMS bf16 terms (split) at shared address `at` + `off` of the TERMS
+// tiles, `stride` apart
 __device__ __forceinline__ void put(uint32_t at, int stride, uint32_t off, float2 v) {
   uint32_t parts[TERMS];
-  cut(v.x, v.y, parts);
+  split(v.x, v.y, parts);
 #pragma unroll
   for (int q = 0; q < TERMS; ++q) st_shared(at + q * stride + off, parts[q]);
 }
@@ -766,7 +744,7 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * j + 2 * r;
         uint32_t parts[TERMS];
-        cut(a[i], a[i + 1], parts);
+        split(a[i], a[i + 1], parts);
 #pragma unroll
         for (int q = 0; q < TERMS; ++q) ga[q][j / 2][2 * (j % 2) + r] = parts[q];
       }
@@ -788,7 +766,7 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
         for (int r = 0; r < 2; ++r) {
           const int i = 4 * j + 2 * r;
           uint32_t parts[TERMS];
-          cut(sacc[i], sacc[i + 1], parts);
+          split(sacc[i], sacc[i + 1], parts);
 #pragma unroll
           for (int q = 0; q < TERMS; ++q) sf[q][j / 2][2 * (j % 2) + r] = parts[q];
         }
@@ -909,7 +887,7 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                  s[8],  s[9],  s[10], s[11], s[12], s[13], s[14],   s[15], s[16],
                  s[17]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(p, st);
+  if (dtype == 0) return (int)launch(p, st);
   if (dtype == 1) return (int)hopper::launch(p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -40,13 +40,14 @@
 //   A fragments read once by ldmatrix; C h^T with the same fragments; G x
 //   with G in registers and x read MN-major; x^T (w o B) with both operands
 //   read MN-major from shared memory (the transpose bits). G, h and w o B
-//   are float32, so each is cut into TERMS bf16 terms (its value rounded,
-//   then what that leaves rounded, ...) and its product is the sum of
-//   TERMS products, 10 a chunk where the function has 4. Two terms leave
-//   ~2^-16 of each operand and broke the elementwise limit at zamba2's
-//   prefill shape on an H100; three leave ~2^-24, as much as float32
-//   operands would (tests/test_torch_ssd_split.py emulates this
-//   arithmetic on the CPU). h lives in the consumer's registers as a wgmma
+//   are float32, so each is cut into TERMS bf16 terms (hopper.cuh's split:
+//   its value rounded, then what that leaves truncated, ...) and its
+//   product is the sum of TERMS products, 10 a chunk where the function
+//   has 4. Two terms leave ~2^-16 of each operand and broke the
+//   elementwise limit at zamba2's prefill shape on an H100; three leave
+//   ~2^-23, near what float32 operands would
+//   (tests/test_torch_ssd_split.py emulates this arithmetic on the CPU).
+//   h lives in the consumer's registers as a wgmma
 //   accumulator; after each update its terms go to shared memory by
 //   stmatrix as C h^T's B operand, beside w o B's terms, which the consumer
 //   writes from the B tile. Within a chunk, the state update and C h^T
@@ -274,19 +275,6 @@ constexpr int SMEM = 1024 + STAGES * STAGE + CONSUMERS * OWN
 struct Bars {
   uint64_t full[STAGES], empty[STAGES];
 };
-
-// a float32 pair cut into TERMS packed bf16 pairs: the pair rounded, then
-// what that leaves rounded, ... (each remainder is exact in float32)
-__device__ __forceinline__ void split(float a, float b, uint32_t (&out)[TERMS]) {
-#pragma unroll
-  for (int k = 0; k < TERMS; ++k) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-    out[k] = *reinterpret_cast<const uint32_t*>(&v);
-    const float2 f = __bfloat1622float2(v);
-    a -= f.x;
-    b -= f.y;
-  }
-}
 
 // d (+)= A . B, A (64 x 16) from registers, B (16 x 64) K-major in shared memory
 __device__ __forceinline__ void mma_rk(float (&d)[32], const uint32_t (&a)[4],

@@ -358,7 +358,7 @@ def test_check_rwkv_fails_a_scan_that_does_not_repeat(monkeypatch, part):
 _RWKV_HOPPER = ("_ZN46_GLOBAL__N__7ed12bfc_13_rwkv6_scan_cu_0a5a1a2b6hopper12"
                 "rwkv6_kernelE14CUtensorMap_stS1_S1_S1_NS_6ParamsEi")
 _RWKV_SIMT = ("_ZN46_GLOBAL__N__7ed12bfc_13_rwkv6_scan_cu_0a5a1a2b12"
-              "rwkv6_kernelIfEEvNS_6ParamsE")
+              "rwkv6_kernelENS_6ParamsE")
 
 
 @pytest.mark.parametrize("hopper, simt, faulty", [

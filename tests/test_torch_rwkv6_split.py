@@ -5,7 +5,8 @@ The body runs the chunked RWKV6 form over 64-step chunks cut into 16-step
 sub-chunks. Every decay is a product of the w's between two steps (never a
 ratio), and w is 1 past T. Its products run on bf16 tensor cores with
 float32 sums, each float32 operand as ``TERMS`` bf16 terms (its value
-rounded, then what that leaves rounded, ...), the count the source sets:
+rounded, then what that leaves truncated, ...: ``hopper.cuh``'s ``split``),
+the count the source sets:
 
 - P1  y  = (r o D) S0        both float32: term pairs qa + qb < TERMS
 - P2  A  = Q^(j) K_j^T       both float32: the same pairs
@@ -43,19 +44,20 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as CS  # noqa: E402
 
 SOURCE = ROOT / "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
+HEADER = ROOT / "src/repro_torch/kernels/csrc/hopper.cuh"
 TERMS = int(re.search(r"constexpr int TERMS = (\d+);",
                       SOURCE.read_text()).group(1))
 CHUNK, SUB = 64, 16
 
 
 def bf16_terms(x: torch.Tensor, k: int) -> list:
-    """float32 ``x`` as ``k`` bf16 terms (as float32): x rounded, then the
-    remainder rounded, and so on; each remainder is exact in float32."""
-    out = []
-    for _ in range(k):
-        hi = x.bfloat16().float()
-        out.append(hi)
-        x = x - hi
+    """float32 ``x`` as ``k`` bf16 terms (as float32), as ``hopper.cuh``'s
+    ``split`` cuts them: x rounded to nearest, then each remainder truncated
+    (its low 16 bits dropped); every remainder is exact in float32."""
+    out = [x.bfloat16().float()]
+    for _ in range(k - 1):
+        x = x - out[-1]
+        out.append((x.view(torch.int32) & -65536).view(torch.float32))
     return out
 
 
@@ -182,6 +184,28 @@ def test_the_kernel_cuts_each_float32_operand_into_bf16_terms():
     """The source sets the term count the emulation uses; one term is the
     plain bf16 product, which the test below shows is not enough."""
     assert TERMS >= 2
+
+
+def test_terms_are_cut_as_the_shared_split_cuts_them():
+    """The emulation's terms are those of ``hopper.cuh``'s ``split``, which
+    rounds once and then truncates: the source has one rounding conversion
+    and the truncating mask; the first term is x rounded, each later one
+    within 2^-7 of what is left and no larger, and three terms leave less
+    than 2^-22 of x, down to float32's smallest normal numbers."""
+    body = re.search(r"void split\(.*?\n}\n", HEADER.read_text(), re.S).group(0)
+    assert body.count("_rn(") == 1 and "0xffff0000u" in body
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.uniform(
+        -30, 30, 4096)).astype(np.float32))
+    terms = bf16_terms(x, 3)
+    assert torch.equal(terms[0], x.bfloat16().float())
+    rest = x - terms[0]
+    for t in terms[1:]:
+        assert torch.equal(t, t.bfloat16().float())
+        assert (t.abs() <= rest.abs()).all()
+        assert ((rest - t).abs() <= rest.abs() * 2.0 ** -7).all()
+        rest = rest - t
+    assert ((x - sum(terms)).abs() <= x.abs() * 2.0 ** -22).all()
 
 
 @pytest.mark.parametrize("T", [64, 65, 100, 512])

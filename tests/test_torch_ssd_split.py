@@ -5,13 +5,13 @@ The body runs the chunked SSD form over 64-step chunks on bf16 tensor
 cores with float32 sums: C B^T straight from the bf16 inputs, and each
 product with a float32 operand (G = (C B^T) o L o dt, the state h, and
 w o B) as the sum of products of that operand's bf16 terms (its value
-rounded, then what that leaves rounded, ...), ``TERMS`` of them, the count
-the source sets. The emulation repeats that arithmetic and is held,
-under ``chip_smoke.py``'s SSD_REL_L2 and SSD_TOL (the limits that hold the
-kernel against the plain scan on the card), against the port's plain
-scan and against the JAX package's scan: its Pallas kernel in interpret
-mode for y, its reference scan for the final state. One bf16 term fails
-those limits. The emulation lives here and not in the package: nothing on
+rounded, then what that leaves truncated, ...: ``hopper.cuh``'s
+``split``), ``TERMS`` of them, the count the source sets. The emulation
+repeats that arithmetic and is held, under ``chip_smoke.py``'s SSD_REL_L2
+and SSD_TOL (the limits that hold the kernel against the plain scan on the
+card), against the port's plain scan and against the JAX package's scan:
+its Pallas kernel in interpret mode for y, its reference scan for the
+final state. One bf16 term fails those limits. The emulation lives here and not in the package: nothing on
 the main path calls it.
 """
 
@@ -42,13 +42,13 @@ LOG2E = 1.4426950408889634
 
 
 def bf16_terms(x: torch.Tensor, k: int) -> list:
-    """float32 ``x`` as ``k`` bf16 terms (as float32): x rounded, then the
-    remainder rounded, and so on; each remainder is exact in float32."""
-    out = []
-    for _ in range(k):
-        hi = x.bfloat16().float()
-        out.append(hi)
-        x = x - hi
+    """float32 ``x`` as ``k`` bf16 terms (as float32), as ``hopper.cuh``'s
+    ``split`` cuts them: x rounded to nearest, then each remainder truncated
+    (its low 16 bits dropped); every remainder is exact in float32."""
+    out = [x.bfloat16().float()]
+    for _ in range(k - 1):
+        x = x - out[-1]
+        out.append((x.view(torch.int32) & -65536).view(torch.float32))
     return out
 
 
