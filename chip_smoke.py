@@ -1037,15 +1037,15 @@ def time_kernels(device, errs, launches):
     # r^T times it (a multiply and an add), w o S, + kv
     ops = 7 * N * N * B * T * H
     b_ms, b_by = bound(nbytes, ops)
-    # the bf16 body runs one block per (b, h) and one block an SM: its time
-    # at T = 512 for one block alone, one on every SM, rwkv6-3b's B * H and
-    # two on every SM
+    # the bf16 body spreads the B * H chains of chunks over at most one
+    # block an SM: its time at T = 512 for one chain alone, one for every
+    # SM, rwkv6-3b's B * H and two for every SM
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    by_blocks = []
+    by_chains = []
     for Bw, Hw in ((1, 1), (1, sms), (B, H), (2, sms)):
         wsets = [rwkv_inputs(gen, Bw, T, Hw, bf, "model", device)
                  for _ in range(2)]
-        by_blocks.append({"blocks": Bw * Hw, "ms": time_ms(
+        by_chains.append({"chains": Bw * Hw, "ms": time_ms(
             lambda *a: RO.rwkv6_scan(*a), wsets)})
     out.append({"name": "rwkv6_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/rwkv6_scan/csrc/"
@@ -1063,10 +1063,11 @@ def time_kernels(device, errs, launches):
                         "the chunked form: 64-step chunks on the tensor "
                         "cores, each float32 operand as three bf16 terms, "
                         "and the diagonal 16-step blocks and the decays as "
-                        "float32 on the CUDA cores",
+                        "float32 on the CUDA cores; persistent blocks share "
+                        "the chunks of all (b, h) chains equally",
                 "shape": f"B={B} T={T} H={H} N={N} bf16 r/k/v, float32 w "
                          f"and u, final state written",
-                "ms_by_blocks": by_blocks})
+                "ms_by_chains": by_chains})
     return out
 
 
@@ -1812,6 +1813,8 @@ RWKV_RAGGED = 500     # a prompt length that is not a whole 64-step chunk
 
 # cases whose label starts so take extreme decays (rwkv_inputs)
 RWKV_EXTREME = "extreme decays"
+# B * H above the card's SMs: the bf16 body hands chains from block to block
+RWKV_CUT = "chains cut between blocks"
 RWKV_FAULTS = ("bonus u left out", "w applied after the kv add",
                "output read after the update", "final state not written",
                "state zero-padded to a whole chunk")
@@ -1872,7 +1875,11 @@ def rwkv_cases():
             ("smoke width", 2, 130, 2, bf, "strided"),
             (RWKV_EXTREME, 2, 130, 8, bf, "model"),
             (f"{RWKV_EXTREME} at the rwkv6-3b prefill", 4, 512, 40, bf,
-             "model")]
+             "model"),
+            # more (b, h) than SMs, chunks not a multiple of the blocks:
+            # the bf16 body cuts chains between blocks
+            (RWKV_CUT, 3, 200, 50, bf, "model"),
+            (RWKV_CUT, 3, 200, 50, bf, "strided")]
 
 
 def rwkv_case_inputs(gen, case, device):

@@ -22,9 +22,9 @@
 // The C entry point chooses the body by the dtype of r, k and v:
 //
 // * bfloat16 (rwkv6-3b's serving path): the chunked form on wgmma, in
-//   namespace hopper below. One block runs one (b, h) and walks its 64-step
-//   chunks. With S0 the state before a chunk, D_t = prod_{tau<t} w_tau the
-//   running product within it (exclusive) and l its valid steps,
+//   namespace hopper below. Each (b, h) is a chain of 64-step chunks that
+//   run in order. With S0 the state before a chunk, D_t = prod_{tau<t}
+//   w_tau the running product within it (exclusive) and l its valid steps,
 //     y_t   = (r_t o D_t)^T S0 + sum_{s<t} A_ts v_s + (sum_n r_tn u_n k_tn) v_t,
 //     A_ts  = sum_n r_tn k_sn prod_{s<tau<t} w_tau,n,
 //     S_end = diag(D_l) S0 + sum_s (k_s o prod_{s<tau<l} w_tau) v_s^T.
@@ -65,18 +65,18 @@
 //   state leaves the last chunk as it was after step T, and their rows of y
 //   are not written. Nothing is summed with atomics, so a second run
 //   repeats bit for bit. The operand tiles and the ring take ~214 KB of
-//   shared memory, so one block fits an SM, and at rwkv6-3b's prefill 28
-//   SMs run two of the 160 blocks in turn: the call takes two block-times,
-//   and that second wave is the largest factor in its time (PERF.md,
-//   chip_smoke.py's time by block count). Two blocks an SM would need
-//   under 113 KB and 64 registers a thread each; units of half the value
-//   columns would each repeat the decays and the diagonal blocks. Within a
-//   block, what holds the body back is its ALU work, not the tensor cores
-//   or the bytes: the splits into terms of 17 16-row blocks of operands a
-//   chunk and the 136 sums of each diagonal block, issued by few warps (a
-//   warp or two on each scheduler) whose dependent chains leave most issue
-//   slots empty. Four warpgroups (512 threads) share the registers 48 /
-//   120 / 120 / 224.
+//   shared memory, so one block fits an SM. The blocks are persistent,
+//   at most one an SM, and share the chunks of all chains equally (Plan):
+//   a chain cut between two blocks passes its state from one to the next
+//   through device memory, so no SM runs a second wave (at rwkv6-3b's
+//   prefill, 160 chains of 8 chunks run as 128 blocks of 10, not as 132
+//   blocks and then 28 more). Two blocks an SM would need under 113 KB and
+//   64 registers a thread each. Within a block, what holds the body back
+//   is its ALU work, not the tensor cores or the bytes: the splits into
+//   terms of 17 16-row blocks of operands a chunk and the 136 sums of each
+//   diagonal block, issued by few warps (a warp or two on each scheduler)
+//   whose dependent chains leave most issue slots empty. Four warpgroups
+//   (512 threads) share the registers 48 / 120 / 120 / 224.
 // * float32 (the float32 path and its checks): one block of 128 threads
 //   runs one (b, h) and keeps S in registers for the whole scan, each
 //   thread an 8 x 4 tile: rows n = 8i + g (g the lane's row group, 0..7) of
@@ -98,6 +98,8 @@
 //   terms summed in another order.
 
 #include "hopper.cuh"
+
+#include <atomic>
 
 namespace {
 
@@ -472,6 +474,52 @@ struct Diagonal {
   }
 };
 
+// S's terms as P1's operand: the accumulator's TERMS bf16 terms (split)
+// as A fragments, by stmatrix into [n_k][n_v] tiles
+__device__ __forceinline__ void stage_state(uint32_t tiles, const float (&acc)[32],
+                                            int warp, int lane) {
+  uint32_t sf[TERMS][4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 4 * j + 2 * r;
+      uint32_t parts[TERMS];
+      split(acc[i], acc[i + 1], parts);
+#pragma unroll
+      for (int q = 0; q < TERMS; ++q) sf[q][j / 2][2 * (j % 2) + r] = parts[q];
+    }
+#pragma unroll
+  for (int q = 0; q < TERMS; ++q) store_a(tiles + q * TILE, sf[q], warp, lane);
+}
+
+// The accumulator's share of S ([n_k][n_v], float32) to a chain's state in
+// device memory, and back (through L2: another SM may have written it)
+__device__ __forceinline__ void store_state(float* sg, const float (&acc)[32], int warp,
+                                            int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(sg + (16 * warp + 8 * r + g) * N + 8 * j + 2 * t4) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+}
+
+__device__ __forceinline__ void load_state(float (&acc)[32], const float* sg, int warp,
+                                           int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(
+          sg + (16 * warp + 8 * r + g) * N + 8 * j + 2 * t4));
+      acc[4 * j + 2 * r] = v.x;
+      acc[4 * j + 2 * r + 1] = v.y;
+    }
+}
+
 // A chunk's 64 rows of a bf16 tensor that TMA cannot read, by the producer
 // warp's plain loads into the swizzled layout TMA would give: lane l loads
 // channels 2l and 2l + 1 of every row; rows past T are zeros
@@ -499,17 +547,90 @@ __device__ __forceinline__ void load_f32(unsigned char* tile, const float* src,
         i < rows ? make_float2(at[0], at[sn]) : make_float2(0.f, 0.f);
 }
 
-// One block: the scan of one (h, b). Warpgroup 0's first warp keeps the
-// ring full; warpgroups 1 and 2 (decay) form each chunk's bf16 operands;
-// warpgroup 3 (products) runs the chunk's products and holds S and y.
-// `plain`: bits 0..3 for r, k, v and w, set where the producer loads the
-// tensor with plain loads instead of its tensor map.
+// A block's share of the scan. The B * H chains of (b, h), n_chunks
+// chunks each, are laid end to end and cut into segments of `per` chunks,
+// one a block (per >= n_chunks, so a chain falls in at most two segments,
+// and the blocks of a grid no larger than the SMs carry equal work). A
+// chain cut by the end of block q's segment is begun by block q, which
+// leaves its state in s_final and raises a flag, and finished by block
+// q + 1 from that state. Block q runs the chain it begins first, then its
+// whole chains, then the chain it finishes: it waits only at its end, for
+// what block q - 1 ran first. Each chunk's arithmetic is that of one
+// block per chain, and the state passes through device memory in float32
+// as it is, so the result is the same bit for bit.
+struct Piece {
+  int bh, c0, c1;   // the chain, b * H + h, and its chunks [c0, c1)
+  bool resumes;     // c0 > 0: S0 is what the block before left
+  bool hands_off;   // c1 < n_chunks: the block after finishes the chain
+};
+
+struct Plan {
+  int nc, lo, hi;   // chunks a chain; the segment [lo, hi) of all chunks
+  __device__ __forceinline__ Plan(int n_chunks, int per, int n_chains, int q)
+      : nc(n_chunks), lo(q * per), hi(min(q * per + per, n_chains * n_chunks)) {}
+  __device__ __forceinline__ int begun() const { return hi % nc != 0; }
+  __device__ __forceinline__ int resumed() const { return lo % nc != 0; }
+  __device__ __forceinline__ int whole() const { return hi / nc - (lo + nc - 1) / nc; }
+  __device__ __forceinline__ int size() const { return begun() + whole() + resumed(); }
+  // the block's k-th piece, in the order it runs them
+  __device__ __forceinline__ Piece operator[](int k) const {
+    if (k < begun()) return {hi / nc, 0, hi % nc, false, true};
+    k -= begun();
+    if (k < whole()) return {(lo + nc - 1) / nc + k, 0, nc, false, false};
+    return {lo / nc, lo % nc, nc, true, false};
+  }
+};
+
+// The flags of the chains handed from block q to block q + 1, at [set][q]:
+// 1 once block q's state is in s_final, back to 0 once block q + 1 has
+// seen it. Calls take the sets in turn, so that calls on other streams
+// that run at the same time do not share a flag.
+constexpr int HANDOFF_SETS = 8, MAX_GRID = 1024;
+__device__ unsigned int handoff[HANDOFF_SETS][MAX_GRID];
+
+__device__ __forceinline__ void raise_flag(unsigned int* f) {
+  asm volatile("st.release.gpu.u32 [%0], %1;\n" :: "l"(f), "r"(1u) : "memory");
+}
+
+// Until the flag is up, then down again. The block before raises it
+// with the first piece it runs, so the wait ends once that block has run
+// it. (A bounded wait that traps made ptxas spill the accumulators.)
+__device__ __forceinline__ void await_flag(unsigned int* f) {
+  unsigned int v;
+  do {
+    asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(v) : "l"(f) : "memory");
+  } while (!v);
+  asm volatile("st.relaxed.gpu.u32 [%0], %1;\n" :: "l"(f), "r"(0u) : "memory");
+}
+
+// S0 of a piece: zero, or the state that the block before left in
+// s_final, once its flag is up
+__device__ __forceinline__ void begin_piece(float (&acc)[32], const Piece& pc,
+                                            const Params& p, int set, int warp, int lane,
+                                            int tid) {
+  if (pc.resumes) {
+    if (tid == 0) await_flag(&handoff[set][blockIdx.x - 1]);
+    sync_consumer(PRODUCTS);
+    load_state(acc, p.s_final + (long long)pc.bh * N * N, warp, lane);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
+}
+
+// One block: the pieces of its segment (Plan). Warpgroup 0's first warp
+// keeps the ring full; warpgroups 1 and 2 (decay) form each chunk's bf16
+// operands; warpgroup 3 (products) runs the chunk's products and holds S
+// and y. All four walk the same chunks in the same order; `it` counts
+// them for the barriers' phases. `plain`: bits 0..3 for r, k, v and w,
+// set where the producer loads the tensor with plain loads instead of its
+// tensor map.
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tw, const Params p,
-             const int plain) {
+             const int plain, const int per, const int set) {
   extern __shared__ unsigned char smem_raw[];
   // swizzled tiles need 1024-byte alignment
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -518,8 +639,7 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
   Bars* bars = reinterpret_cast<Bars*>(base + BAR_AT);
   float* fs = reinterpret_cast<float*>(base + F_AT);
   float* dl = reinterpret_cast<float*>(base + DL_AT);
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int n_chunks = (p.T + L - 1) / L;
+  const Plan plan((p.T + L - 1) / L, per, p.B * p.H, blockIdx.x);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
 
@@ -545,33 +665,39 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
 #pragma unroll
       for (int x = 0; x < 4; ++x)
         if (!(plain >> x & 1)) bytes += x < 3 ? TILE : W_TILE;
-      for (int c = 0; c < n_chunks; ++c) {
-        const int s = c % STAGES, t0 = c * L;
-        unsigned char* st = base + s * STAGE;
-        bar_wait(&bars->empty[s], ((c / STAGES) & 1) ^ 1);
-        if (lane == 0) {
-          bar_expect_tx(&bars->full[s], bytes);
+      int it = 0;
+      for (int k = 0; k < plan.size(); ++k) {
+        const Piece pc = plan[k];
+        const int b = pc.bh / p.H, h = pc.bh % p.H;
+        for (int c = pc.c0; c < pc.c1; ++c, ++it) {
+          const int s = it % STAGES, t0 = c * L;
+          unsigned char* st = base + s * STAGE;
+          bar_wait(&bars->empty[s], ((it / STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            bar_expect_tx(&bars->full[s], bytes);
 #pragma unroll
-          for (int x = 0; x < 4; ++x)
-            if (!(plain >> x & 1))
-              tma_load(st + x * TILE, maps[x], &bars->full[s], 0, h, t0, b);
+            for (int x = 0; x < 4; ++x)
+              if (!(plain >> x & 1))
+                tma_load(st + x * TILE, maps[x], &bars->full[s], 0, h, t0, b);
+          }
+          if (plain & 1)
+            load_bf16(st, static_cast<const bf16*>(p.r) + b * p.r_sb + h * p.r_sh,
+                      p.r_st, p.r_sn, t0, p.T, lane);
+          if (plain & 2)
+            load_bf16(st + TILE, static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh,
+                      p.k_st, p.k_sn, t0, p.T, lane);
+          if (plain & 4)
+            load_bf16(st + 2 * TILE,
+                      static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh, p.v_st,
+                      p.v_sn, t0, p.T, lane);
+          if (plain & 8)
+            load_f32(st + 3 * TILE, p.w + b * p.w_sb + h * p.w_sh, p.w_st, p.w_sn, t0,
+                     p.T, lane);
+          // plain stores are seen by the async proxy (wgmma reads v) before
+          // the arrival releases them
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          bar_arrive(&bars->full[s]);
         }
-        if (plain & 1)
-          load_bf16(st, static_cast<const bf16*>(p.r) + b * p.r_sb + h * p.r_sh,
-                    p.r_st, p.r_sn, t0, p.T, lane);
-        if (plain & 2)
-          load_bf16(st + TILE, static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh,
-                    p.k_st, p.k_sn, t0, p.T, lane);
-        if (plain & 4)
-          load_bf16(st + 2 * TILE, static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh,
-                    p.v_st, p.v_sn, t0, p.T, lane);
-        if (plain & 8)
-          load_f32(st + 3 * TILE, p.w + b * p.w_sb + h * p.w_sh, p.w_st, p.w_sn, t0,
-                   p.T, lane);
-        // plain stores are seen by the async proxy (wgmma reads v) before
-        // the arrival releases them
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        bar_arrive(&bars->full[s]);
       }
     }
     return;
@@ -588,106 +714,114 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 120;\n");
     const int half = wg - 1, row0 = SUB * w + HALF * half;
     const float2 one = make_float2(1.f, 1.f);
-    for (int c = 0; c < n_chunks; ++c) {
-      const int s = c % STAGES;
-      const uint32_t st = sbase + s * STAGE;
-      const int valid = min(L, p.T - c * L) - row0;  // steps before T
-      bar_wait(&bars->full[s], (c / STAGES) & 1);
-      // r, k and w of each step (w 1 past T); ys[i] = prod_{i<tau<8} w_tau
-      // of the half, and the product of the half's 8 to the other warps
-      uint32_t rv[HALF];
-      float2 kv[HALF], wv[HALF], ys[HALF];
+    int it = 0;
+    for (int k = 0; k < plan.size(); ++k) {
+      const Piece pc = plan[k];
+      for (int c = pc.c0; c < pc.c1; ++c, ++it) {
+        const int s = it % STAGES;
+        const uint32_t st = sbase + s * STAGE;
+        const int valid = min(L, p.T - c * L) - row0;  // steps before T
+        bar_wait(&bars->full[s], (it / STAGES) & 1);
+        // r, k and w of each step (w 1 past T); ys[i] = prod_{i<tau<8} w_tau
+        // of the half, and the product of the half's 8 to the other warps
+        uint32_t rv[HALF];
+        float2 kv[HALF], wv[HALF], ys[HALF];
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const uint32_t off = swz(row0 + i, col);
-        rv[i] = ld_shared(st + off);
-        kv[i] = unpack(ld_shared(st + TILE + off));
-        wv[i] = i < valid ? ld_shared_f2(st + 3 * TILE + (row0 + i) * N * 4 + 8 * lane)
-                          : one;
+        for (int i = 0; i < HALF; ++i) {
+          const uint32_t off = swz(row0 + i, col);
+          rv[i] = ld_shared(st + off);
+          kv[i] = unpack(ld_shared(st + TILE + off));
+          wv[i] = i < valid ? ld_shared_f2(st + 3 * TILE + (row0 + i) * N * 4 + 8 * lane)
+                            : one;
+        }
+        ys[HALF - 1] = one;
+#pragma unroll
+        for (int i = HALF - 1; i > 0; --i) ys[i - 1] = mul2(ys[i], wv[i]);
+        float* fc = fs + (it & 1) * 8 * N;  // two buffers: no warp overtakes a reader
+        *reinterpret_cast<float2*>(fc + (2 * w + half) * N + 2 * lane) = mul2(ys[0], wv[0]);
+        sync_decay();
+        if (lane == 0) bar_arrive(&bars->empty[s]);  // r, k and w are read
+        float2 Hp[8], F[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          Hp[i] = *reinterpret_cast<const float2*>(fc + i * N + 2 * lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) F[i] = mul2(Hp[2 * i], Hp[2 * i + 1]);
+        // R = r o prod of w from the sub-chunk's start (exclusive), and
+        // K_w = k o prod of w to its end (exclusive): the other half's
+        // product enters the second half's R and the first half's K_w
+        const float2 into =
+            half ? (w == 0 ? Hp[0] : w == 1 ? Hp[2] : w == 2 ? Hp[4] : Hp[6]) : one;
+        const float2 after =
+            half ? one : (w == 0 ? Hp[1] : w == 1 ? Hp[3] : w == 2 ? Hp[5] : Hp[7]);
+        float2 R[HALF], kj[HALF], x = into;
+#pragma unroll
+        for (int i = 0; i < HALF; ++i) {
+          R[i] = mul2(unpack(rv[i]), x);
+          kj[i] = mul2(kv[i], mul2(ys[i], after));
+          x = mul2(x, wv[i]);
+        }
+        // before the sub-chunk, after it, all four, and G[j] = prod_{j<i<w} F_i
+        float2 pre = one, post = one, all = one, G[3] = {one, one, one};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i < w) pre = mul2(pre, F[i]);
+          if (i > w) post = mul2(post, F[i]);
+          all = mul2(all, F[i]);
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            if (j < i && i < w) G[j] = mul2(G[j], F[i]);
+        }
+        // Q^(j) and K_j once the last chunk's P2 has read them, then r o D
+        // and K~ once its P1 and P4 have
+        bar_wait(&bars->free_qk, (it & 1) ^ 1);
+#pragma unroll
+        for (int i = 0; i < HALF; ++i) {
+          const uint32_t off = swz(row0 + i, col);
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            if (j < w) put(sbase + QH_AT + qh_view(j), QH_TERM, off, mul2(R[i], G[j]));
+          if (w < 3) put(sbase + KJ_AT, KJ_TERM, off, kj[i]);
+        }
+        bar_wait(&bars->free_rk, (it & 1) ^ 1);
+        if (w == 0 && half == 0) *reinterpret_cast<float2*>(dl + 2 * lane) = all;
+#pragma unroll
+        for (int i = 0; i < HALF; ++i) {
+          const uint32_t off = swz(row0 + i, col);
+          put(sbase + RD_AT, TILE, off, mul2(R[i], pre));
+          put(sbase + KT_AT, TILE, off, mul2(kj[i], post));
+        }
+        // the operands are seen by wgmma (the async proxy) before the arrival
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) bar_arrive(&bars->ready);
       }
-      ys[HALF - 1] = one;
-#pragma unroll
-      for (int i = HALF - 1; i > 0; --i) ys[i - 1] = mul2(ys[i], wv[i]);
-      float* fc = fs + (c & 1) * 8 * N;  // two buffers: no warp overtakes a reader
-      *reinterpret_cast<float2*>(fc + (2 * w + half) * N + 2 * lane) = mul2(ys[0], wv[0]);
-      sync_decay();
-      if (lane == 0) bar_arrive(&bars->empty[s]);  // r, k and w are read
-      float2 Hp[8], F[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Hp[i] = *reinterpret_cast<const float2*>(fc + i * N + 2 * lane);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) F[i] = mul2(Hp[2 * i], Hp[2 * i + 1]);
-      // R = r o prod of w from the sub-chunk's start (exclusive), and
-      // K_w = k o prod of w to its end (exclusive): the other half's
-      // product enters the second half's R and the first half's K_w
-      const float2 into = half ? (w == 0 ? Hp[0] : w == 1 ? Hp[2] : w == 2 ? Hp[4] : Hp[6])
-                               : one;
-      const float2 after = half ? one
-                                : (w == 0 ? Hp[1] : w == 1 ? Hp[3] : w == 2 ? Hp[5] : Hp[7]);
-      float2 R[HALF], kj[HALF], x = into;
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        R[i] = mul2(unpack(rv[i]), x);
-        kj[i] = mul2(kv[i], mul2(ys[i], after));
-        x = mul2(x, wv[i]);
-      }
-      // before the sub-chunk, after it, all four, and G[j] = prod_{j<i<w} F_i
-      float2 pre = one, post = one, all = one, G[3] = {one, one, one};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i < w) pre = mul2(pre, F[i]);
-        if (i > w) post = mul2(post, F[i]);
-        all = mul2(all, F[i]);
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          if (j < i && i < w) G[j] = mul2(G[j], F[i]);
-      }
-      // Q^(j) and K_j once the last chunk's P2 has read them, then r o D
-      // and K~ once its P1 and P4 have
-      bar_wait(&bars->free_qk, (c & 1) ^ 1);
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const uint32_t off = swz(row0 + i, col);
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          if (j < w) put(sbase + QH_AT + qh_view(j), QH_TERM, off, mul2(R[i], G[j]));
-        if (w < 3) put(sbase + KJ_AT, KJ_TERM, off, kj[i]);
-      }
-      bar_wait(&bars->free_rk, (c & 1) ^ 1);
-      if (w == 0 && half == 0) *reinterpret_cast<float2*>(dl + 2 * lane) = all;
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const uint32_t off = swz(row0 + i, col);
-        put(sbase + RD_AT, TILE, off, mul2(R[i], pre));
-        put(sbase + KT_AT, TILE, off, mul2(kj[i], post));
-      }
-      // the operands are seen by wgmma (the async proxy) before the arrival
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncwarp();
-      if (lane == 0) bar_arrive(&bars->ready);
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
 
   // products warpgroup: the accumulators' element i sits at row 16 w +
-  // 8 ((i >> 1) & 1) + g, column 8 (i >> 2) + 2 t4 + (i & 1)
+  // 8 ((i >> 1) & 1) + g, column 8 (i >> 2) + 2 t4 + (i & 1). One loop
+  // over the block's chunks, with the piece (k), the chunk in its chain
+  // (c), and the piece's b, h and u carried from one chunk to the next.
   const int g = lane / 4, t4 = lane % 4;
-  const float2 u = make_float2(p.u[h * p.u_sh + 2 * lane * p.u_sn],
-                               p.u[h * p.u_sh + (2 * lane + 1) * p.u_sn]);
   float* dg = reinterpret_cast<float*>(base + DIAG_AT) + w * DG;
-  for (int i = tid; i < TERMS * TILE / 16; i += 128)  // S0 = 0: its terms too
-    st_shared4(sbase + S_AT + 16 * i, make_uint4(0, 0, 0, 0));
+  int k = 0;
+  Piece pc = plan[0];
+  int c = pc.c0, b = pc.bh / p.H, h = pc.bh % p.H;
+  float2 u = make_float2(p.u[h * p.u_sh + 2 * lane * p.u_sn],
+                         p.u[h * p.u_sh + (2 * lane + 1) * p.u_sn]);
+  float sacc[32];
+  begin_piece(sacc, pc, p, set, w, lane, tid);
+  stage_state(sbase + S_AT, sacc, w, lane);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   sync_consumer(PRODUCTS);
-  float sacc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int s = c % STAGES, t0 = c * L;
+  for (int it = 0; it < plan.hi - plan.lo; ++it) {
+    const int s = it % STAGES;
     const uint32_t st = sbase + s * STAGE;
-    bar_wait(&bars->ready, c & 1);               // the operands
-    bar_wait(&bars->full[s], (c / STAGES) & 1);  // r, k, v and w
+    bar_wait(&bars->ready, it & 1);               // the operands
+    bar_wait(&bars->full[s], (it / STAGES) & 1);  // r, k, v and w
     const float d_lo = dl[16 * w + g], d_hi = dl[16 * w + g + 8];
     float y[32], a[32];
 #pragma unroll
@@ -732,7 +866,8 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
       if (jb < w) continue;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const int row = 8 * ((e >> 1) & 1) + g, cl = 8 * ((e >> 2) & 1) + 2 * t4 + (e & 1);
+        const int row = 8 * ((e >> 1) & 1) + g;
+        const int cl = 8 * ((e >> 2) & 1) + 2 * t4 + (e & 1);
         a[8 * jb + e] =
             jb == w && cl <= row ? dg[row * (row + 1) / 2 + row - cl] : 0.f;
       }
@@ -756,23 +891,31 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
     fence_regs(sacc);
     __syncwarp();
     if (lane == 0) bar_arrive(&bars->free_rk);
-    if (c + 1 < n_chunks) {
-      // S's terms for the next chunk's P1 (this chunk's has read them), as
-      // A fragments into [n_k][n_v] tiles
-      uint32_t sf[TERMS][4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = 4 * j + 2 * r;
-          uint32_t parts[TERMS];
-          split(sacc[i], sacc[i + 1], parts);
-#pragma unroll
-          for (int q = 0; q < TERMS; ++q) sf[q][j / 2][2 * (j % 2) + r] = parts[q];
-        }
-#pragma unroll
-      for (int q = 0; q < TERMS; ++q) store_a(sbase + S_AT + q * TILE, sf[q], w, lane);
+    // where this chunk's y goes, before the piece may change below
+    float* yc = p.y + (((long long)b * p.T + c * L) * p.H + h) * N;
+    const int rows = p.T - c * L;
+    if (++c == pc.c1) {
+      // a piece ends: the chain's state, the final state or S0 for the
+      // block after, whose flag is raised once every warp's share is out;
+      // then the next piece's S0
+      store_state(p.s_final + (long long)pc.bh * N * N, sacc, w, lane);
+      if (pc.hands_off) {
+        __threadfence();
+        sync_consumer(PRODUCTS);
+        if (tid == 0) raise_flag(&handoff[set][blockIdx.x]);
+      }
+      if (k + 1 < plan.size()) {
+        pc = plan[++k];
+        c = pc.c0;
+        b = pc.bh / p.H;
+        h = pc.bh % p.H;
+        u = make_float2(p.u[h * p.u_sh + 2 * lane * p.u_sn],
+                        p.u[h * p.u_sh + (2 * lane + 1) * p.u_sn]);
+        begin_piece(sacc, pc, p, set, w, lane, tid);
+      }
     }
+    // S's terms for the next chunk's P1 (this chunk's has read them)
+    stage_state(sbase + S_AT, sacc, w, lane);
     // every warp's S terms are in place before the next chunk's P1
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     sync_consumer(PRODUCTS);
@@ -783,26 +926,16 @@ rwkv6_kernel(const __grid_constant__ CUtensorMap tr,
     __syncwarp();
     if (lane == 0) bar_arrive(&bars->empty[s]);
     // y: the rows before T
-    float* yc = p.y + (((long long)b * p.T + t0) * p.H + h) * N;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = 16 * w + 8 * r + g;
-      if (t0 + row < p.T) {
+      if (row < rows) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<float2*>(yc + (long long)row * p.H * N + 8 * j + 2 * t4) =
               make_float2(y[4 * j + 2 * r], y[4 * j + 2 * r + 1]);
       }
     }
-  }
-  float* sf = p.s_final + ((long long)b * p.H + h) * N * N;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = 16 * w + 8 * r + g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(sf + row * N + 8 * j + 2 * t4) =
-          make_float2(sacc[4 * j + 2 * r], sacc[4 * j + 2 * r + 1]);
   }
 }
 
@@ -857,11 +990,20 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
       plain |= 1 << x;
   if (!tma_readable(p.w, 4, p.w_sb, p.w_st, p.w_sh, p.w_sn, p) || !w_map(&maps[3], p))
     plain |= 8;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  // a block an SM at most, each with `per` chunks of the B * H chains
+  const long long n_chains = (long long)p.B * p.H, n_chunks = (p.T + L - 1) / L;
+  if (n_chains * n_chunks > (1ll << 30)) return cudaErrorInvalidValue;
+  int grid;
+  const cudaError_t err = persistent_grid(rwkv6_kernel, SMEM, n_chains, &grid);
   if (err != cudaSuccess) return err;
-  rwkv6_kernel<<<dim3(p.H, p.B), BLOCK_THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2],
-                                                          maps[3], p, plain);
+  if (grid > MAX_GRID) grid = MAX_GRID;
+  long long per = (n_chains * n_chunks + grid - 1) / grid;
+  if (per < n_chunks) per = n_chunks;
+  grid = (int)((n_chains * n_chunks + per - 1) / per);
+  static std::atomic<unsigned int> calls{0};
+  const int set = (int)(calls.fetch_add(1) % HANDOFF_SETS);
+  rwkv6_kernel<<<grid, BLOCK_THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                      p, plain, (int)per, set);
   return cudaGetLastError();
 }
 

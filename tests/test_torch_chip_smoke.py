@@ -271,8 +271,23 @@ def test_rwkv_cases_add_extreme_decays_at_two_sizes():
         (2, 130, 8, torch.bfloat16, "model"),
         (4, 512, 40, torch.bfloat16, "model")]
     cases = CS.rwkv_cases()
-    assert cases[-2:] == RWKV_EXTREME_CASES
-    assert sum(c[5] == "strided" for c in cases) == 7
+    assert cases[-4:-2] == RWKV_EXTREME_CASES
+    assert sum(c[5] == "strided" for c in cases) == 8
+
+
+def test_rwkv_cases_cut_chains_between_blocks():
+    """The last two cases, bf16 in both layouts, have more (b, h) chains
+    than an H100 has SMs (132) and a chunk count per chain (4) that does
+    not divide the chunks a block takes, so the bf16 body hands chains
+    from one block to the next, with a ragged last chunk."""
+    cut = [c for c in CS.rwkv_cases() if c[0] == CS.RWKV_CUT]
+    assert cut == CS.rwkv_cases()[-2:]
+    assert [c[1:] for c in cut] == [(3, 200, 50, torch.bfloat16, "model"),
+                                    (3, 200, 50, torch.bfloat16, "strided")]
+    B, T, H = cut[0][1:4]
+    chains, chunks = B * H, -(-T // 64)
+    per = max(-(-chains * chunks // 132), chunks)
+    assert chains > 132 and T % 64 and per % chunks
 
 
 def test_extreme_decays_hold_exact_zeros_and_ones():
