@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/**/csrc``, holds each
-kernel against its plain PyTorch version on the card (the backward kernels
-and both scans also against planted faults and against a second run, bit
-for bit), then
+kernel against its plain PyTorch version on the card (every kernel also
+against planted faults; the decode attention, the backward kernels and
+both scans also against a second run, bit for bit), then
 drives the port's three main paths at full width with random weights from
 a seed, and shows from the launch counters, set to 0 just before each path
 and read just after, that each went through the kernels:
 
 * serving yi-6b through ``ServeEngine.generate`` (uniform and ragged
-  prompts) and ``RequestScheduler`` over ``TPServeEngine(world=None)``;
+  prompts) and ``RequestScheduler`` over ``TPServeEngine(world=None)``,
+  with one decode-attention (B3) device kernel a layer in a profiled
+  decode step;
 * training gpt2-124m: 6 steps of ``make_train_step`` (AdamW) on one fixed
   batch of 8 x 1024 tokens, with remat "full", each step counted on its
   own: 24 forward launches, 12 of each backward kernel, 0 of the plain
@@ -45,7 +47,11 @@ the train step, and prints:
   flash attention's entry also lists all three of its main-path shapes
   (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward), and
   the backward kernels' entries the time of the whole backward call
-  (``bwd_ms``: delta, B2a and B2b), which compares with SDPA's;
+  (``bwd_ms``: delta, B2a and B2b), which compares with SDPA's; decode
+  attention's entry its three shapes (yi-6b serving, zamba2 decode, every
+  row in one chunk), its time by the chunks a row holds
+  (``ms_by_chunks``) and at zamba2's shape by the route of one query head
+  a K/V head (``g1_routes_ms``);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -326,7 +332,21 @@ def decode_cases():
             ("GQA full cache", 2, 4, 2, 64, 16, f32, [64, 64]),
             ("GQA full cache", 2, 4, 2, 64, 16, bf, [64, 64]),
             ("MHA", 1, 4, 4, 96, 32, f32, [50]),
-            ("MHA", 1, 4, 4, 96, 32, bf, [50])]
+            ("MHA", 1, 4, 4, 96, 32, bf, [50]),
+            # the bf16 body's paths: every row in one 64-row chunk (o
+            # written at once), chunk counts that differ within the batch
+            # and reach the last, partial chunk of S (the last block of a
+            # row combines), G = 1 at hd = 64 on both, and 12 heads a K/V
+            # head (groups of 8 and 4)
+            ("one chunk each", 4, 32, 4, SERVE_MAX_LEN, 128, bf,
+             [1, 17, 63, 64]),
+            ("chunk counts differ", 4, 32, 4, 1000, 128, bf,
+             [1000, 65, 937, 130]),
+            ("MHA hd=64 one chunk each", 4, 32, 32, SERVE_MAX_LEN, 64, bf,
+             [1, 17, 63, 64]),
+            ("MHA hd=64 chunk counts differ", 4, 32, 32, SERVE_MAX_LEN, 64,
+             bf, [SERVE_MAX_LEN, 1, 300, 129]),
+            ("12 heads a K/V head", 2, 24, 2, 300, 64, bf, [300, 150])]
 
 
 def rand_like_cases(gen, shapes, dtype, device):
@@ -444,23 +464,55 @@ def check_kernels(device):
     """Every case: kernel against plain version. Returns each kernel's
     max abs error at its serving-shape case."""
     gen = torch.Generator(device=device).manual_seed(0)
-    errs = {"flash_attention": check_flash(device, gen),
-            "decode_attention": 0.0}
+    return {"flash_attention": check_flash(device, gen),
+            "decode_attention": check_decode(device)}
+
+
+def decode_repeat(fn, ins):
+    """``fn(*ins)`` twice: (the first run's output, whether the second run
+    gave the same bits)."""
+    o = fn(*ins)
+    o2 = fn(*ins)
+    if o.is_cuda:
+        torch.cuda.synchronize()
+    return o, torch.equal(o, o2)
+
+
+def check_decode(device):
+    """B3 against the plain version in every case, each run twice; the same
+    limits must reject each planted fault, and the second run must give the
+    same bits (the last block of a row combines its chunks in chunk order,
+    whichever block that is). bf16 cases with one query head a K/V head run
+    on both routes of G = 1. Returns the max abs error of the yi-6b serving
+    case."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    err_main = 0.0
     for label, B, H, KV, S, hd, dt, lens in decode_cases():
         q, kc, vc = rand_like_cases(gen, [(B, 1, H, hd), (B, S, KV, hd),
                                           (B, S, KV, hd)], dt, device)
         q = q[:, 0]        # strided, as the decode step hands it over
         ln = torch.tensor(lens, dtype=torch.int32, device=device)
-        o = DO.decode_attention(q, kc, vc, ln)
-        torch.cuda.synchronize()
         o_ref = DR.decode_attention_ref(q, kc, vc, ln)
         name = str(dt).replace("torch.", "")
-        err = report("decode_attention", label,
-                     f"B={B} H={H} KV={KV} S={S} hd={hd} {name} lens={lens}",
-                     o, o_ref, decode_faults(q, kc, vc, ln))
-        if label == "yi-6b serving":
-            errs["decode_attention"] = err
-    return errs
+        faults = decode_faults(q, kc, vc, ln)
+        routes = DO.G1_ROUTES if H == KV and dt == torch.bfloat16 \
+            and q.is_cuda else (None,)
+        for route in routes:
+            if route is not None:
+                DO.set_g1_route(route)
+            o, bitwise = decode_repeat(DO.decode_attention, (q, kc, vc, ln))
+            shape = (f"B={B} H={H} KV={KV} S={S} hd={hd} {name} lens={lens}"
+                     + (f" G=1 on the {route}" if route else ""))
+            err = report("decode_attention", label, shape, o, o_ref, faults)
+            faults = {}    # rejected once: they do not depend on the route
+            print(f"  second run {'bitwise equal' if bitwise else 'DIFFERS'}")
+            check(bitwise, f"decode_attention does not repeat bit for bit "
+                           f"({label}, {shape})")
+            if label == "yi-6b serving":
+                err_main = err
+        if routes[0] is not None:
+            DO.set_g1_route(DO.G1_ROUTES[0])
+    return err_main
 
 
 def bwd_cases():
@@ -880,6 +932,69 @@ def time_flash(device, gen):
     return out
 
 
+# B3's main-path shapes: (path, B, H, KV, S, hd, lens), all bf16: a decode
+# step of yi-6b's ragged generate (32 layers' caches), of zamba2's generate,
+# and every row on the one-chunk path
+DECODE_TIMED = (("yi-6b serving", 4, 32, 4, SERVE_MAX_LEN, 128,
+                 [n + N_NEW // 2 for n in PROMPT_LENS]),
+                ("zamba2 decode", 4, 32, 32, SERVE_MAX_LEN, 64,
+                 [512 + N_NEW // 2] * 4),
+                ("one chunk", 4, 32, 4, SERVE_MAX_LEN, 128, [1, 17, 63, 64]))
+
+
+def decode_sets(gen, B, H, KV, S, hd, device, n: int = 32):
+    return [rand_like_cases(gen, [(B, H, hd), (B, S, KV, hd),
+                                  (B, S, KV, hd)], torch.bfloat16, device)
+            for _ in range(n)]
+
+
+def time_decode(device, gen):
+    """B3, its plain version and SDPA timed at each of DECODE_TIMED, with
+    the card's bound; B3 at yi-6b's heads by the chunks each row holds (1,
+    2, 5, 9: 16 blocks a chunk); and at zamba2's decode shape on each route
+    of G = 1, in turns (first, second, second, first)."""
+    shapes = []
+    for path, B, H, KV, S, hd, lens in DECODE_TIMED:
+        ln = torch.tensor(lens, dtype=torch.int32, device=device)
+        mask = (torch.arange(S, device=device)[None, :] < ln[:, None])
+        mask = mask[:, None, None, :]
+        sets = decode_sets(gen, B, H, KV, S, hd, device)
+        ms = time_ms(lambda q, k, v: DO.decode_attention(q, k, v, ln), sets,
+                     iters=64)
+        plain = time_ms(lambda q, k, v: DR.decode_attention_ref(q, k, v, ln),
+                        sets, iters=16)
+        lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), sets, iters=64)
+        rows = sum(min(n, S) for n in lens)
+        nbytes = 2 * (2 * rows * KV * hd + 2 * B * H * hd) + 4 * B
+        ops = 4 * rows * H * hd
+        b_ms, b_by = bound(nbytes, ops)
+        shapes.append({"path": path, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                       "vs_library": ms / lib,
+                       "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
+                                f"lens={lens}"})
+    _, B, H, KV, S, hd, _ = DECODE_TIMED[0]
+    sets = decode_sets(gen, B, H, KV, S, hd, device)
+    by_chunks = []
+    for rows in (64, 128, 320, 544):
+        ln = torch.full((B,), rows, dtype=torch.int32, device=device)
+        by_chunks.append({"chunks": -(-rows // 64), "rows": rows,
+                          "ms": time_ms(lambda q, k, v: DO.decode_attention(
+                              q, k, v, ln), sets, iters=64)})
+    _, B, H, KV, S, hd, lens = DECODE_TIMED[1]
+    ln = torch.tensor(lens, dtype=torch.int32, device=device)
+    sets = decode_sets(gen, B, H, KV, S, hd, device)
+    g1 = {r: [] for r in DO.G1_ROUTES}
+    for route in DO.G1_ROUTES + DO.G1_ROUTES[::-1]:
+        DO.set_g1_route(route)
+        g1[route].append(time_ms(lambda q, k, v: DO.decode_attention(
+            q, k, v, ln), sets, iters=64))
+    DO.set_g1_route(DO.G1_ROUTES[0])
+    return shapes, by_chunks, g1
+
+
 def time_kernels(device, errs, launches):
     """The kernels' line: each kernel, its plain version and the library
     call timed at the main paths' shapes (B1 and B3 serving yi-6b, B2a and
@@ -907,26 +1022,10 @@ def time_kernels(device, errs, launches):
                                               "shape")},
                 "shapes": shapes})
 
-    # B3 at a decode step of the ragged generate: 32 layers' caches
-    B, S, H, KV, hd = 4, SERVE_MAX_LEN, 32, 4, 128
-    lens = [n + N_NEW // 2 for n in PROMPT_LENS]
-    ln = torch.tensor(lens, dtype=torch.int32, device=device)
-    mask = (torch.arange(S, device=device)[None, :] < ln[:, None])
-    mask = mask[:, None, None, :]
-    sets = [rand_like_cases(gen, [(B, H, hd), (B, S, KV, hd),
-                                  (B, S, KV, hd)], bf, device)
-            for _ in range(32)]
-    ms = time_ms(lambda q, k, v: DO.decode_attention(q, k, v, ln), sets,
-                 iters=64)
-    plain = time_ms(lambda q, k, v: DR.decode_attention_ref(q, k, v, ln),
-                    sets, iters=16)
-    lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), sets, iters=64)
-    rows = sum(min(n, S) for n in lens)
-    nbytes = 2 * (2 * rows * KV * hd + 2 * B * H * hd) + 4 * B
-    ops = 4 * rows * H * hd
-    b_ms, b_by = bound(nbytes, ops)
+    # B3 at its main-path shapes; the entry's own numbers are the yi-6b
+    # serving shape's, the first
+    shapes, by_chunks, g1_routes = time_decode(device, gen)
+    main = shapes[0]
     out.append({"name": "decode_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/decode_attention/csrc/"
                           "decode.cu",
@@ -934,11 +1033,12 @@ def time_kernels(device, errs, launches):
                 "launches": sum(n["decode_attention"] for n in launches.values()),
                 "launches_by_path": {p: n["decode_attention"]
                                      for p, n in launches.items()},
-                "max_abs_err": errs["decode_attention"], "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib,
-                "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
-                         f"lens={lens}"})
+                "max_abs_err": errs["decode_attention"],
+                **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "shape")},
+                "shapes": shapes, "ms_by_chunks": by_chunks,
+                "g1_routes_ms": g1_routes})
 
     # B2a and B2b at a gpt2-124m train step's attention: (8, 1024), 12 heads
     B, H, KV, S, hd = TRAIN_B, 12, 12, TRAIN_S, 64
@@ -1230,6 +1330,12 @@ def serve(device, card):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
+    # one device kernel a B3 call: one call a layer and decode step
+    b3 = profile["decode_step"] and profile["decode_step"]["b3_kernels_per_step"]
+    print(f"yi-6b decode step: {b3} B3 device kernels for {cfg.n_layers} "
+          f"calls")
+    check(b3 == cfg.n_layers, f"yi-6b decode step: {b3} B3 device kernels, "
+                              f"not one for each of {cfg.n_layers} calls")
     return launches, {
         "serving": {
             "model": "yi-6b (32 layers, d=4096, random bf16 weights)",
@@ -2311,22 +2417,29 @@ def matmul_shapes(prof, n: int):
             sorted(per.items(), key=lambda kv: -kv[1])[:8]]
 
 
+# names of B3's device kernels: the bf16 body's one, the float32 body's two
+B3_KERNELS = ("decode_kernel", "decode_partial", "decode_combine")
+
+
 def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
     """Device time by kernel over ``fn()`` (``n`` steps), from
     torch.profiler; the idle share is taken against the unprofiled wall
-    time of a step. None where the profiler saw no device time. With
-    ``shapes``, also the matmuls' operand shapes (:func:`matmul_shapes`)."""
+    time of a step, and B3's device kernels are counted a step. None where
+    the profiler saw no device time. With ``shapes``, also the matmuls'
+    operand shapes (:func:`matmul_shapes`)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=shapes) as prof:
         fn()
         torch.cuda.synchronize()
-    per = {}
+    per, b3 = {}, 0
     for e in prof.key_averages():   # device events: kernels, copies
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per[e.key] = per.get(e.key, 0.0) \
                 + e.self_device_time_total / 1e3 / n
+            if any(w in e.key.lower() for w in B3_KERNELS):
+                b3 += e.count
     busy = sum(per.values())
     if busy == 0:
         return None
@@ -2335,8 +2448,8 @@ def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
               "other": 0.0}
     for name, t in per.items():
         low = name.lower()
-        if any(w in low for w in ("flash_fwd", "dq_kernel", "dkv_kernel",
-                                  "decode_partial", "decode_combine")):
+        if any(w in low for w in ("flash_fwd", "dq_kernel", "dkv_kernel")
+               + B3_KERNELS):
             groups["attention kernels"] += t
         elif "ssd_kernel" in low or "rwkv6_kernel" in low:
             groups["scan kernel"] += t
@@ -2346,6 +2459,7 @@ def device_window(fn, wall_ms: float, n: int = 1, shapes: bool = False):
             groups["other"] += t
     out = {"device_busy_ms": busy, "wall_ms": wall_ms,
            "idle_share": max(0.0, 1 - busy / wall_ms),
+           "b3_kernels_per_step": b3 / n,
            "groups_ms": groups,
            "top_kernels_ms": [[k[:90], t] for k, t in top]}
     if shapes:
@@ -2410,6 +2524,7 @@ def main() -> None:
     print_ptxas("flash_bwd", "hopper")
     print_ptxas("ssd_scan", "hopper")
     print_ptxas("rwkv6_scan", "hopper")
+    print_ptxas("decode", "hopper")
 
     errs = check_kernels(device)
     errs.update(check_bwd(device))

@@ -15,19 +15,30 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 
 
 _LIB = None          # the loaded library, its signatures set once
-_CHUNK_ROWS = 0      # cache rows per block of the partial kernel
 
 
 def _lib():
-    global _LIB, _CHUNK_ROWS
+    global _LIB
     if _LIB is None:
         lib = _build.load("decode")
         lib.decode_attention.argtypes = _ARGTYPES
         lib.decode_attention.restype = ctypes.c_int
-        lib.decode_chunk_rows.restype = ctypes.c_int
-        _CHUNK_ROWS = lib.decode_chunk_rows()
+        lib.decode_workspace_floats.argtypes = [_I] * 5
+        lib.decode_workspace_floats.restype = _L
+        lib.decode_g1_route.argtypes = [_I]
+        lib.decode_g1_route.restype = None
         _LIB = lib
     return _LIB
+
+
+G1_ROUTES = ("tensor cores", "cuda cores")
+
+
+def set_g1_route(route: str) -> None:
+    """Where the bf16 kernel runs one query head per K/V head (G = 1): on
+    the tensor cores, with the product's 8 columns padded, or on the CUDA
+    cores. For timing the two; set it between calls."""
+    _lib().decode_g1_route(G1_ROUTES.index(route))
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -94,12 +105,11 @@ def decode_attention(q, k_cache, v_cache, lens, scale=None):
     scale = hd ** -0.5 if scale is None else float(scale)
     lens = _lens_on_device(lens, B, q.device)
     lib = _lib()
-    n_chunks = -(-S // _CHUNK_ROWS)
     o = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    part_o = torch.empty((B, KV, n_chunks, H // KV, hd), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, KV, n_chunks, H // KV, 2), dtype=torch.float32,
-                          device=q.device)
+    # the partial outputs and their max and sum, laid out by the kernel
+    n = lib.decode_workspace_floats(B, H, KV, S, hd)
+    part_o = torch.empty(n, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(n // hd * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -195,8 +195,8 @@ def test_build_target_changes_with_a_header(monkeypatch, tmp_path):
 
 
 def test_build_target_changes_with_the_shared_header(monkeypatch, tmp_path):
-    """``csrc/hopper.cuh`` sits beside ``_build.py``, shared by B1, B2, B4
-    and B5: an edit to it changes the library path of every kernel whose
+    """``csrc/hopper.cuh`` sits beside ``_build.py``, shared by B1, B2, B3,
+    B4 and B5: an edit to it changes the library path of every kernel whose
     source includes it, and of no other. Run on a copy of the sources."""
     import shutil
     src = _build.KERNELS_DIR
@@ -208,7 +208,8 @@ def test_build_target_changes_with_the_shared_header(monkeypatch, tmp_path):
     header = tmp_path / "csrc" / "hopper.cuh"
     header.write_text(header.read_text() + "// edited\n")
     changed = {n for n in _build.SOURCES if _build._target(n) != before[n]}
-    assert changed == {"flash_fwd", "flash_bwd", "ssd_scan", "rwkv6_scan"}
+    assert changed == {"flash_fwd", "flash_bwd", "decode", "ssd_scan",
+                       "rwkv6_scan"}
     for n in changed:
         assert _build._included(tmp_path / _build.SOURCES[n]) == [header]
 
