@@ -49,9 +49,8 @@ the train step, and prints:
   the backward kernels' entries the time of the whole backward call
   (``bwd_ms``: delta, B2a and B2b), which compares with SDPA's; decode
   attention's entry its three shapes (yi-6b serving, zamba2 decode, every
-  row in one chunk), its time by the chunks a row holds
-  (``ms_by_chunks``) and at zamba2's shape by the route of one query head
-  a K/V head (``g1_routes_ms``);
+  row in one chunk) and its time by the chunks a row holds
+  (``ms_by_chunks``);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -482,9 +481,8 @@ def check_decode(device):
     """B3 against the plain version in every case, each run twice; the same
     limits must reject each planted fault, and the second run must give the
     same bits (the last block of a row combines its chunks in chunk order,
-    whichever block that is). bf16 cases with one query head a K/V head run
-    on both routes of G = 1. Returns the max abs error of the yi-6b serving
-    case."""
+    whichever block that is). Returns the max abs error of the yi-6b
+    serving case."""
     gen = torch.Generator(device=device).manual_seed(8)
     err_main = 0.0
     for label, B, H, KV, S, hd, dt, lens in decode_cases():
@@ -492,26 +490,17 @@ def check_decode(device):
                                           (B, S, KV, hd)], dt, device)
         q = q[:, 0]        # strided, as the decode step hands it over
         ln = torch.tensor(lens, dtype=torch.int32, device=device)
+        o, bitwise = decode_repeat(DO.decode_attention, (q, kc, vc, ln))
         o_ref = DR.decode_attention_ref(q, kc, vc, ln)
         name = str(dt).replace("torch.", "")
-        faults = decode_faults(q, kc, vc, ln)
-        routes = DO.G1_ROUTES if H == KV and dt == torch.bfloat16 \
-            and q.is_cuda else (None,)
-        for route in routes:
-            if route is not None:
-                DO.set_g1_route(route)
-            o, bitwise = decode_repeat(DO.decode_attention, (q, kc, vc, ln))
-            shape = (f"B={B} H={H} KV={KV} S={S} hd={hd} {name} lens={lens}"
-                     + (f" G=1 on the {route}" if route else ""))
-            err = report("decode_attention", label, shape, o, o_ref, faults)
-            faults = {}    # rejected once: they do not depend on the route
-            print(f"  second run {'bitwise equal' if bitwise else 'DIFFERS'}")
-            check(bitwise, f"decode_attention does not repeat bit for bit "
-                           f"({label}, {shape})")
-            if label == "yi-6b serving":
-                err_main = err
-        if routes[0] is not None:
-            DO.set_g1_route(DO.G1_ROUTES[0])
+        shape = f"B={B} H={H} KV={KV} S={S} hd={hd} {name} lens={lens}"
+        err = report("decode_attention", label, shape, o, o_ref,
+                     decode_faults(q, kc, vc, ln))
+        print(f"  second run {'bitwise equal' if bitwise else 'DIFFERS'}")
+        check(bitwise, f"decode_attention does not repeat bit for bit "
+                       f"({label}, {shape})")
+        if label == "yi-6b serving":
+            err_main = err
     return err_main
 
 
@@ -950,9 +939,8 @@ def decode_sets(gen, B, H, KV, S, hd, device, n: int = 32):
 
 def time_decode(device, gen):
     """B3, its plain version and SDPA timed at each of DECODE_TIMED, with
-    the card's bound; B3 at yi-6b's heads by the chunks each row holds (1,
-    2, 5, 9: 16 blocks a chunk); and at zamba2's decode shape on each route
-    of G = 1, in turns (first, second, second, first)."""
+    the card's bound; and B3 at yi-6b's heads by the chunks each row holds
+    (1, 2, 5, 9: 16 blocks a chunk)."""
     shapes = []
     for path, B, H, KV, S, hd, lens in DECODE_TIMED:
         ln = torch.tensor(lens, dtype=torch.int32, device=device)
@@ -983,16 +971,7 @@ def time_decode(device, gen):
         by_chunks.append({"chunks": -(-rows // 64), "rows": rows,
                           "ms": time_ms(lambda q, k, v: DO.decode_attention(
                               q, k, v, ln), sets, iters=64)})
-    _, B, H, KV, S, hd, lens = DECODE_TIMED[1]
-    ln = torch.tensor(lens, dtype=torch.int32, device=device)
-    sets = decode_sets(gen, B, H, KV, S, hd, device)
-    g1 = {r: [] for r in DO.G1_ROUTES}
-    for route in DO.G1_ROUTES + DO.G1_ROUTES[::-1]:
-        DO.set_g1_route(route)
-        g1[route].append(time_ms(lambda q, k, v: DO.decode_attention(
-            q, k, v, ln), sets, iters=64))
-    DO.set_g1_route(DO.G1_ROUTES[0])
-    return shapes, by_chunks, g1
+    return shapes, by_chunks
 
 
 def time_kernels(device, errs, launches):
@@ -1024,7 +1003,7 @@ def time_kernels(device, errs, launches):
 
     # B3 at its main-path shapes; the entry's own numbers are the yi-6b
     # serving shape's, the first
-    shapes, by_chunks, g1_routes = time_decode(device, gen)
+    shapes, by_chunks = time_decode(device, gen)
     main = shapes[0]
     out.append({"name": "decode_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -1037,8 +1016,7 @@ def time_kernels(device, errs, launches):
                 **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms",
                                               "shape")},
-                "shapes": shapes, "ms_by_chunks": by_chunks,
-                "g1_routes_ms": g1_routes})
+                "shapes": shapes, "ms_by_chunks": by_chunks})
 
     # B2a and B2b at a gpt2-124m train step's attention: (8, 1024), 12 heads
     B, H, KV, S, hd = TRAIN_B, 12, 12, TRAIN_S, 64
@@ -1331,7 +1309,8 @@ def serve(device, card):
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
     # one device kernel a B3 call: one call a layer and decode step
-    b3 = profile["decode_step"] and profile["decode_step"]["b3_kernels_per_step"]
+    step = profile["decode_step"]
+    b3 = step and step["b3_kernels_per_step"]
     print(f"yi-6b decode step: {b3} B3 device kernels for {cfg.n_layers} "
           f"calls")
     check(b3 == cfg.n_layers, f"yi-6b decode step: {b3} B3 device kernels, "

@@ -36,11 +36,13 @@
 // workspace, fences and takes a ticket from its pair's counter; the block
 // that arrives last combines the pair's chunks in chunk order, so the
 // result does not depend on which block came last, writes o and resets the
-// counter. At G = 1 (MHA) the n of the product is padded to 8; the CUDA
-// cores take it instead when `decode_g1_route(1)` was called. Chunks past a
-// sequence's length exit at once; the count of chunks comes from `lens` on
-// the device. The float32 body is two kernels: a partial kernel on the
-// CUDA cores, then a combine kernel.
+// counter. At G = 1 (MHA, zamba2) the CUDA cores take the products, each
+// lane reading 16 bytes of a K and a V row straight into registers: at
+// zamba2's decode shape that took 0.0166 ms against 0.0186 with the n of
+// the products padded to 8 (PERF.md, PR 29). Chunks past a sequence's
+// length exit at once; the count of chunks comes from `lens` on the device.
+// The float32 body is two kernels: a partial kernel on the CUDA cores,
+// then a combine kernel.
 
 #include <atomic>
 
@@ -262,9 +264,6 @@ constexpr int TICKET_SETS = 8, MAX_PAIRS = 1 << 15;
 // same time do not share a counter.
 __device__ unsigned int tickets[TICKET_SETS][MAX_PAIRS];
 
-// G = 1 on the CUDA cores (1) or on the tensor cores with n padded (0)
-int g1_cuda_cores = 0;
-
 template <int HD>
 struct Stage {
   // the chunk's K and V rows as stored; a row of HD + PAD bf16 is an odd
@@ -274,7 +273,7 @@ struct Stage {
   bf16 v[BS][HD + PAD];
   uint32_t p[P_TERMS][BS][HEADS / 2];  // P's bf16 terms, [row][head pair]
   float o[HD][HEADS];                  // the chunk's unnormalised o^T
-  float ow[NW][HD];                    // CUDA-core G = 1: each warp's o
+  float ow[NW][HD];                    // G = 1: each warp's o
   float m[NW][HEADS], l[NW][HEADS];    // each warp's max and sum a head
   unsigned int ticket;
 };
@@ -460,7 +459,7 @@ __device__ __forceinline__ void mma_body(Stage<HD>& st, const bf16* q, const bf1
   }
 }
 
-// The CUDA-core body for G = 1: lanes read 16 bytes of a row each, straight
+// The CUDA-core body of G = 1: lanes read 16 bytes of a row each, straight
 // into registers, and each warp takes 16 rows; the result as mma_body's in
 // column 0.
 template <int HD>
@@ -535,6 +534,7 @@ __device__ __forceinline__ void simt_body(Stage<HD>& st, const bf16* q, const bf
   }
 }
 
+// SIMT: G = 1, on the CUDA cores
 template <int HD, bool SIMT>
 __global__ void __launch_bounds__(NT) decode_kernel(const Params p, const int set) {
   __shared__ __align__(16) Stage<HD> st;
@@ -652,7 +652,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   static std::atomic<unsigned int> calls{0};
   const int set = (int)(calls.fetch_add(1) % TICKET_SETS);
   const dim3 grid(p.n_chunks, p.KV * groups, p.B);
-  if (G == 1 && g1_cuda_cores)
+  if (G == 1)
     decode_kernel<HD, true><<<grid, NT, 0, stream>>>(p, set);
   else
     decode_kernel<HD, false><<<grid, NT, 0, stream>>>(p, set);
@@ -681,16 +681,13 @@ extern "C" long long decode_workspace_floats(int B, int H, int KV, int S, int hd
   return (long long)B * KV * padded * ((S + BS - 1) / BS) * hd;
 }
 
-// G = 1 (MHA) in bf16: 1 on the CUDA cores, 0 on the tensor cores. For
-// timing the two routes; not safe while a call is being launched.
-extern "C" void decode_g1_route(int cuda_cores) { hopper::g1_cuda_cores = cuda_cores; }
-
 // dtype: 0 = float32, 1 = bfloat16. lens: (B,) int32 on the device. The
 // caches are read 16 bytes at a time: they must be 16-byte aligned with
 // strides that are multiples of 16 bytes. part_o and part_ml: float32
 // scratch on the device of the sizes `decode_workspace_floats` gives.
-// float32 takes the CUDA-core body (two kernels), bfloat16 the tensor-core
-// body (one). Returns a cudaError_t (0 on success).
+// float32 takes the CUDA-core body (two kernels), bfloat16 the one-launch
+// body (tensor cores; CUDA cores at G = 1). Returns a cudaError_t (0 on
+// success).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const int* lens, void* o, float* part_o,
                                 float* part_ml, int dtype, int B, int H,

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,20 +26,16 @@ def _lib():
         lib.decode_attention.restype = ctypes.c_int
         lib.decode_workspace_floats.argtypes = [_I] * 5
         lib.decode_workspace_floats.restype = _L
-        lib.decode_g1_route.argtypes = [_I]
-        lib.decode_g1_route.restype = None
         _LIB = lib
     return _LIB
 
 
-G1_ROUTES = ("tensor cores", "cuda cores")
-
-
-def set_g1_route(route: str) -> None:
-    """Where the bf16 kernel runs one query head per K/V head (G = 1): on
-    the tensor cores, with the product's 8 columns padded, or on the CUDA
-    cores. For timing the two; set it between calls."""
-    _lib().decode_g1_route(G1_ROUTES.index(route))
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(B: int, H: int, KV: int, S: int, hd: int) -> int:
+    """Floats of the partial outputs the kernel lays out for a call; their
+    max and sum take this many / hd * 2. Asked once a shape, so that a
+    decode step pays no ctypes call for it."""
+    return _lib().decode_workspace_floats(B, H, KV, S, hd)
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -107,7 +104,7 @@ def decode_attention(q, k_cache, v_cache, lens, scale=None):
     lib = _lib()
     o = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     # the partial outputs and their max and sum, laid out by the kernel
-    n = lib.decode_workspace_floats(B, H, KV, S, hd)
+    n = _workspace_floats(B, H, KV, S, hd)
     part_o = torch.empty(n, dtype=torch.float32, device=q.device)
     part_ml = torch.empty(n // hd * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

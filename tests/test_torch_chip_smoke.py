@@ -9,6 +9,7 @@ strided views. The ptxas report of the ``hopper`` kernels fails the run on a
 stack frame, a spill or a serialised ``wgmma``.
 """
 
+import re
 import sys
 from pathlib import Path
 
@@ -398,3 +399,119 @@ def test_ptxas_report_checks_the_rwkv6_wgmma_body(hopper, simt, faulty):
     assert bool(faults) == faulty
     assert all("hopper" in r for r in report)
     assert "rwkv6_kernel" in _RWKV_HOPPER
+
+
+# B3's cases, by label
+DECODE_CASES = {c[0]: c for c in CS.decode_cases() if c[6] == torch.bfloat16}
+
+
+def test_decode_cases_cover_the_bf16_body_paths():
+    """Every row in one chunk (G = 8, and G = 1 at hd = 64), chunk counts
+    that differ within the batch and reach the last, partial chunk of S
+    (G = 8, and G = 1 at hd = 64), a group of 12 heads (8 and 4 a block),
+    the empty row, and zamba2's serving case as it was."""
+    chunk = 64
+    for label, G, hd in (("one chunk each", 8, 128),
+                         ("MHA hd=64 one chunk each", 1, 64)):
+        _, B, H, KV, S, d, dt, lens = DECODE_CASES[label]
+        assert (H // KV, d) == (G, hd) and S > chunk
+        assert max(lens) == chunk and min(lens) >= 1
+    for label, G, hd in (("chunk counts differ", 8, 128),
+                         ("MHA hd=64 chunk counts differ", 1, 64)):
+        _, B, H, KV, S, d, dt, lens = DECODE_CASES[label]
+        counts = [-(-min(n, S) // chunk) for n in lens]
+        assert (H // KV, d) == (G, hd)
+        assert len(set(counts)) == B and max(lens) >= S
+        assert min(counts) == 1 or S % chunk
+    _, B, H, KV, S, hd, dt, lens = DECODE_CASES["12 heads a K/V head"]
+    assert H // KV == 12
+    assert 0 in DECODE_CASES["yi-6b heads, an empty row"][7]
+    assert DECODE_CASES["zamba2 serving"][1:] == (
+        4, 32, 32, CS.SERVE_MAX_LEN, 64, torch.bfloat16, [528] * 4)
+
+
+def _flaky_decode(calls):
+    """The plain version, with one ulp added to one element of the output
+    of every call after the first."""
+    def decode(*ins):
+        o = CS.DR.decode_attention_ref(*ins)
+        if calls:
+            o = o.clone()
+            o.view(-1)[7] = torch.nextafter(o.view(-1)[7],
+                                            torch.tensor(float("inf"),
+                                                         dtype=o.dtype))
+        calls.append(1)
+        return o
+    return decode
+
+
+@pytest.mark.parametrize("flaky", [False, True], ids=["same", "one-bit"])
+def test_decode_repeat_sees_one_bit(flaky):
+    """``decode_repeat`` returns the first run and whether the second gave
+    the same bits: one ulp of one element is seen."""
+    gen = torch.Generator().manual_seed(0)
+    q, kc, vc = CS.rand_like_cases(gen, [(2, 4, 16), (2, 9, 2, 16),
+                                         (2, 9, 2, 16)], torch.bfloat16,
+                                   "cpu")
+    ln = torch.tensor([9, 3])
+    fn = _flaky_decode([]) if flaky else CS.DR.decode_attention_ref
+    o, same = CS.decode_repeat(fn, (q, kc, vc, ln))
+    assert torch.equal(o, CS.DR.decode_attention_ref(q, kc, vc, ln))
+    assert same == (not flaky)
+
+
+@pytest.mark.parametrize("flaky", [False, True], ids=["repeats", "differs"])
+def test_check_decode_fails_a_kernel_that_does_not_repeat(monkeypatch,
+                                                          flaky):
+    """``check_decode`` runs each case twice through the wrapper and fails
+    the run when the second differs, even where both agree with the plain
+    version (here on the CPU, at one small case)."""
+    monkeypatch.setattr(CS, "decode_cases", lambda: [
+        ("tiny", 2, 8, 2, 130, 16, torch.bfloat16, [130, 5])])
+    fn = _flaky_decode([]) if flaky else CS.DR.decode_attention_ref
+    monkeypatch.setattr(CS.DO, "decode_attention", fn)
+    if flaky:
+        with pytest.raises(SystemExit):
+            CS.check_decode("cpu")
+    else:
+        CS.check_decode("cpu")
+
+
+_DECODE_HOPPER = ("_ZN41_GLOBAL__N__095d471f_9_decode_cu_7dbeda1b6hopper13"
+                  "decode_kernelILi128ELb0EEEvNS_6ParamsEi")
+_DECODE_SIMT = ("_ZN41_GLOBAL__N__095d471f_9_decode_cu_7dbeda1b21"
+                "decode_partial_kernelILi128EEEvNS_6ParamsE")
+
+
+@pytest.mark.parametrize("hopper, simt, faulty", [
+    ({}, {}, False),
+    ({"spill": 4}, {}, True),
+    ({"stack": 64}, {}, True),
+    ({}, {"stack": 16}, False),
+    (None, {}, True),
+], ids=["clean", "spill", "stack", "float32-body-not-checked",
+        "no-bf16-body"])
+def test_ptxas_report_checks_the_decode_bf16_body(hopper, simt, faulty):
+    """``print_ptxas("decode", "hopper")``, which ``main`` runs, reads only
+    B3's bf16 body (namespace ``hopper``, "decode_kernel" in its name, as
+    the profile's B3 count reads it); the float32 body's two kernels are
+    not held to it, and a build without the bf16 body fails."""
+    assert 'print_ptxas("decode", "hopper")' in Path(CS.__file__).read_text()
+    lines = _ssd_log(_DECODE_SIMT, **simt)
+    if hopper is not None:
+        lines += _ssd_log(_DECODE_HOPPER, **hopper)
+    report, faults = CS.ptxas_report("\n".join(lines), "hopper")
+    assert bool(faults) == faulty
+    assert all("hopper" in r for r in report)
+
+
+def test_the_profile_counts_every_b3_device_kernel():
+    """The decode step's B3 count reads the names of every kernel that
+    ``decode.cu`` launches: the bf16 body's one and the float32 body's
+    two."""
+    source = (Path(CS.__file__).parent / "src/repro_torch/kernels/"
+              "decode_attention/csrc/decode.cu").read_text()
+    launched = set(re.findall(r"(\w+_kernel)(?:<[^>]*>)?<<<", source))
+    assert launched and all(any(w in name for w in CS.B3_KERNELS)
+                            for name in launched)
+    assert all(w in source for w in CS.B3_KERNELS)
