@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/**/csrc``, holds each
 kernel against its plain PyTorch version on the card (every kernel also
 against planted faults; the decode attention, the backward kernels and
 both scans also against a second run, bit for bit), then
-drives the port's three main paths at full width with random weights from
+drives the port's main paths at full width with random weights from
 a seed, and shows from the launch counters, set to 0 just before each path
 and read just after, that each went through the kernels:
 
@@ -24,7 +24,18 @@ and read just after, that each went through the kernels:
   exactly 6 decode-attention launches and no scan, 0 plain launches;
 * serving rwkv6-3b through ``ServeEngine.generate``: a prefill of exactly
   32 RWKV6-scan (B5) launches, decode steps of none (the one-token
-  recurrence is plain float32 work), 0 plain launches.
+  recurrence is plain float32 work), 0 plain launches;
+* data-parallel training over the simulated fabric (the paper's §5.2
+  experiment): ``DDPTrainer`` over a ``JcclWorld`` of 2 ``ShiftLib``
+  ranks, gpt2-124m at full width, 4 x 1024 tokens a rank, 4 steps with
+  host1's first NIC killed after step 2, each step counted on its own:
+  48 forward launches, 24 of each backward kernel, 0 plain; step 1's
+  all-reduce equal bit for bit to the float32 sum of the two ranks'
+  gradients, a rank's gradient repeating bit for bit, the post-fallback
+  checkpoint; then the ``StandardLib`` baseline crashes on the same kill,
+  restores its step-2 checkpoint and resumes to step 4. Before it, the
+  float32 smoke trainer on the card against the CPU (losses, virtual
+  accounting) and its flat, bucketed and hooked runs, bit for bit.
 
 It holds the kernel path against the plain path at full width (logits
 while serving, loss and gradients while training; for zamba2 and rwkv6
@@ -40,6 +51,12 @@ the train step, and prints:
 * a ``{"zamba2": ...}`` line: prefill ms, decode ms per step, tokens/s,
   device-busy ms and idle share, peak memory, the full-width readings;
 * a ``{"rwkv6": ...}`` line: the same for rwkv6-3b;
+* a ``{"ddp": ...}`` line: each step's wall ms, each rank's forward and
+  backward ms, the gradient copies to the host, the fabric's host
+  seconds, AdamW, the virtual gradient-sync ms (the healthy steps of the
+  ShiftLib and StandardLib runs side by side), fallbacks, recoveries and
+  restarts, the checkpoint saves and the restore (ms and bytes), both
+  runs' losses, peak memory and the launches of each step;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
@@ -62,9 +79,11 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -77,6 +96,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
+from repro_torch.collectives import build_world  # noqa: E402
 from repro_torch.configs import (gpt2_124m, rwkv6_3b, yi_6b,  # noqa: E402
                                  zamba2_1p2b)
 from repro_torch.kernels import _build  # noqa: E402
@@ -96,6 +116,7 @@ from repro_torch.models.lm import flatten, unflatten  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.serving import (RequestScheduler, ServeEngine,  # noqa: E402
                                  TPServeEngine)
+from repro_torch.train import trainer as TR  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core
 # operations/s. Every timed kernel takes bf16 inputs.
@@ -193,6 +214,27 @@ ZAMBA_F32_REL_L2 = 5e-3
 ZAMBA_LAYER_REL_L2 = 1e-3
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 6
+
+# data-parallel training over the fabric. (a) build_smoke_trainer's model
+# in float32, 3 steps on the card against the CPU (losses within
+# SMOKE_TRAIN_REL, the virtual accounting DDP_RUN_FIELDS equal), then the
+# DDP_MODES on the card, whose losses must be equal bit for bit; (b)
+# gpt2-124m at full width: 2 ranks of DDP_B x DDP_S tokens, DDP_STEPS
+# steps, DDP_NIC killed after step DDP_KILL, 25 MiB buckets (PyTorch
+# DDP's default bucket_cap_mb) of 1 MiB chunks (64 KiB chunks would cost
+# the host ~9 s of fabric a step)
+DDP_SMOKE = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                 d_ff=512, vocab=512)
+DDP_SMOKE_STEPS = 3
+DDP_MODES = {"flat": dict(bucket_bytes=0),
+             "bucketed": dict(bucket_bytes=1 << 16),
+             "hooked": dict(bucket_bytes=1 << 16, issue_as_produced=True,
+                            layer_compute_s=2e-4)}
+DDP_RUN_FIELDS = ("comm_time", "step_grad_times", "step_peak_works",
+                  "fallbacks", "final_step")
+DDP_B, DDP_S, DDP_STEPS, DDP_KILL = 4, 1024, 4, 2
+DDP_BUCKET_BYTES, DDP_CHUNK_BYTES = 25 << 20, 1 << 20
+DDP_NIC = "host1/mlx5_0"
 
 SERVE_MAX_LEN = 544          # 512-token prompts + 32 new tokens (both models)
 PROMPT_LENS = [128, 256, 384, 512]
@@ -1602,6 +1644,395 @@ def train(device, card):
 
 
 # ---------------------------------------------------------------------------
+# data-parallel training over the fabric: DDPTrainer over a JcclWorld
+# ---------------------------------------------------------------------------
+
+
+def fabric_sum_faults(inputs, outputs) -> list:
+    """Where each rank's all-reduce output differs, bit for bit, from the
+    float32 sum of the ranks' ``inputs`` taken in rank order (for two
+    ranks the sum has one order): one line a rank that differs, else
+    []."""
+    want = inputs[0].copy()
+    for v in inputs[1:]:
+        want += v
+    faults = []
+    for r, out in enumerate(outputs):
+        bad = np.flatnonzero(out.view(np.uint32) != want.view(np.uint32))
+        if bad.size:
+            faults.append(f"rank {r}: {bad.size} of {want.size} elements "
+                          f"differ from the float32 sum, first at {bad[0]}")
+    return faults
+
+
+def sync(device) -> None:
+    """Wait for the card, when ``device`` is one."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _losses(run):
+    """A TrainRun's loss a step."""
+    return [loss for _, _, loss in run.timeline]
+
+
+def kill_nic_after(cluster, step: int):
+    """An ``on_step`` that fails DDP_NIC after step ``step``."""
+    def on_step(s, t, loss):
+        if s == step:
+            cluster.fail_nic(DDP_NIC)
+    return on_step
+
+
+@contextmanager
+def ddp_recorded(trainer, kill_after=None):
+    """Times one DDPTrainer's run on the host clock around synchronised
+    work and keeps step 1's all-reduce inputs, by wrapping the trainer's
+    own steps: each rank's forward and backward (``_grad_fn``), its
+    gradient copy to the host (``_flatten_grads``), the all-reduce
+    (``_allreduce_grads``), AdamW, the store's save and restore. Its
+    ``on_step`` reads the launch counts of the step that just ended and
+    sets them to 0, and fails host1's first NIC after step
+    ``kill_after``. Step 1's sum check, and its copies, are left out of
+    the step's wall time."""
+    tr, dev = trainer, trainer.device
+    rec = {"rank_ms": [], "copy_ms": [], "fabric_s": [], "adamw_ms": [],
+           "step_ms": [], "counts": [], "saves": [], "restores": [],
+           "excluded": 0.0, "mark": None, "inputs": None,
+           "sum_faults": None, "init_params": None, "params": None}
+    grad_fn, flat, allreduce = tr._grad_fn, tr._flatten_grads, \
+        tr._allreduce_grads
+    init, save, restore = tr._init_state, tr.store.save, tr.store.restore
+    adamw = TR.adamw_update
+
+    def t_init():
+        state = init()
+        rec["init_params"] = state["params"]   # never updated in place
+        sync(dev)
+        rec["mark"] = time.perf_counter()
+        return state
+
+    def t_grad(params, batch):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = grad_fn(params, batch)
+        sync(dev)
+        rec["rank_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def t_flat(grads):
+        t0 = time.perf_counter()
+        out = flat(grads)
+        rec["copy_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def t_allreduce(world, run, vecs):
+        first = rec["inputs"] is None
+        if first:
+            t0 = time.perf_counter()
+            rec["inputs"] = [v.copy() for v in vecs]
+            rec["excluded"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        allreduce(world, run, vecs)
+        rec["fabric_s"].append(time.perf_counter() - t0)
+        if first:
+            t0 = time.perf_counter()
+            rec["sum_faults"] = fabric_sum_faults(rec["inputs"], vecs)
+            rec["excluded"] += time.perf_counter() - t0
+
+    def t_adamw(*a, **kw):
+        t0 = time.perf_counter()
+        out = adamw(*a, **kw)
+        sync(dev)
+        rec["adamw_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["params"] = out[0]
+        return out
+
+    def t_save(step, tree, metadata=None):
+        t0 = time.perf_counter()
+        path = save(step, tree, metadata)
+        rec["saves"].append({
+            "step": step, "ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": os.path.getsize(os.path.join(path, "state.npz")),
+            "reason": (metadata or {}).get("reason")})
+        rec["mark"] = time.perf_counter()
+        return path
+
+    def t_restore(template, step=None):
+        t0 = time.perf_counter()
+        out = restore(template, step)
+        sync(dev)
+        step = out[1]["step"]
+        rec["restores"].append({
+            "step": step, "ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": os.path.getsize(os.path.join(
+                tr.store.root, f"step-{step:08d}", "state.npz"))})
+        return out
+
+    def on_step(step, t, loss):
+        sync(dev)
+        now = time.perf_counter()
+        rec["step_ms"].append((now - rec["mark"] - rec["excluded"]) * 1e3)
+        rec["excluded"] = 0.0
+        rec["counts"].append(read_counts())
+        zero_counts()
+        if step == kill_after:
+            tr.cluster.fail_nic(DDP_NIC)
+        rec["mark"] = time.perf_counter()
+
+    tr._grad_fn, tr._flatten_grads, tr._allreduce_grads = \
+        t_grad, t_flat, t_allreduce
+    tr._init_state, tr.store.save, tr.store.restore = \
+        t_init, t_save, t_restore
+    TR.adamw_update = t_adamw
+    rec["on_step"] = on_step
+    zero_counts()
+    try:
+        yield rec
+    finally:
+        TR.adamw_update = adamw
+        tr._grad_fn, tr._flatten_grads, tr._allreduce_grads = \
+            grad_fn, flat, allreduce
+        tr._init_state, tr.store.save, tr.store.restore = \
+            init, save, restore
+
+
+def ddp_trainer(device, cfg, world_kw, ckpt_dir, batch_per_rank, seq_len,
+                **tcfg_kw):
+    """A DDPTrainer over a fresh ``build_world(**world_kw)`` (the world is
+    returned beside it)."""
+    cluster, libs, world = build_world(**world_kw)
+    tcfg = TR.TrainerConfig(ckpt_dir=ckpt_dir, seed=0, **tcfg_kw)
+    return TR.DDPTrainer(cluster, libs, cfg, tcfg,
+                         batch_per_rank=batch_per_rank, seq_len=seq_len,
+                         device=device), world
+
+
+def run_fields(run) -> dict:
+    """The virtual accounting the card and the CPU must share."""
+    return {f: getattr(run, f) for f in DDP_RUN_FIELDS}
+
+
+def ddp_smoke_matches_cpu(device) -> dict:
+    """(a) The smoke trainer's model in float32: 3 steps on the card
+    against 3 on the CPU from the same params, host1's first NIC killed
+    after step 1; then, on the card, flat, bucketed and hooked runs."""
+    cfg = gpt2_124m.smoke_config(dtype=torch.float32, **DDP_SMOKE)
+    L = cfg.n_layers
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(dev, name, kill_after=None, **kw):
+            tr, world = ddp_trainer(
+                dev, cfg, dict(n_ranks=2, channels=2,
+                               max_chunk_bytes=1 << 14),
+                os.path.join(tmp, name), steps=DDP_SMOKE_STEPS,
+                ckpt_every=2, lr=3e-3, batch_per_rank=2, seq_len=32, **kw)
+            zero_counts()
+            r = tr.train(world, on_step=None if kill_after is None else
+                         kill_nic_after(tr.cluster, kill_after))
+            runs[name] = (r, read_counts())
+            return r
+        cpu = run("cpu", "cpu", 1, bucket_bytes=1 << 16)
+        card = run(device, "card", 1, bucket_bytes=1 << 16)
+        for name, kw in DDP_MODES.items():
+            run(device, name, **kw)
+    l_cpu, l_card = _losses(cpu), _losses(card)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    n = runs["card"][1]
+    print(f"ddp smoke f32 (2 ranks x 2 x 32 tokens, 3 steps, NIC killed "
+          f"after step 1): losses card {l_card} cpu {l_cpu}, rel "
+          f"{rel:.3g} (limit {SMOKE_TRAIN_REL}); card {run_fields(card)}; "
+          f"cpu {run_fields(cpu)}; card launches {n}")
+    check(rel <= SMOKE_TRAIN_REL, "ddp smoke: card and CPU losses differ")
+    check(run_fields(card) == run_fields(cpu),
+          "ddp smoke: card and CPU virtual accounting differ")
+    check(card.fallbacks >= 1 and card.final_step == DDP_SMOKE_STEPS,
+          f"ddp smoke: {run_fields(card)}")
+    bwd = DDP_SMOKE_STEPS * 2 * L    # one a layer, rank and step
+    check(n["flash_attention"] == 2 * bwd    # remat "full" runs it twice
+          and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == bwd
+          and all(n[k] == 0 for k in PLAIN),
+          f"ddp smoke on the card: launches {n}")
+    modes = {name: _losses(runs[name][0]) for name in DDP_MODES}
+    print(f"ddp smoke f32 on the card, healthy: losses {modes}; virtual "
+          f"grad ms a step " + str({
+              name: [x * 1e3 for x in runs[name][0].step_grad_times]
+              for name in DDP_MODES}))
+    check(modes["flat"] == modes["bucketed"] == modes["hooked"],
+          "ddp smoke: flat, bucketed and hooked losses differ")
+    return {"losses_card": l_card, "losses_cpu": l_cpu, "loss_rel": rel,
+            "virtual": run_fields(card), "modes_losses": modes}
+
+
+def ddp_full_width(device, card) -> tuple:
+    """(b) gpt2-124m at full width: 2 ShiftLib ranks of 4 x 1024 tokens,
+    4 steps, host1's first NIC killed after step 2; then the StandardLib
+    baseline's crash, restore and resume. Returns (launches of the
+    ShiftLib run, the ddp line)."""
+    cfg = gpt2_124m.config()
+    L = cfg.n_layers
+    want = {n: 0 for n in PLAIN + ("decode_attention", "ssd_scan",
+                                   "rwkv6_scan")}
+    want.update(flash_attention=2 * 2 * L, flash_bwd_dq=2 * L,
+                flash_bwd_dkv=2 * L)
+    kw = dict(steps=DDP_STEPS, lr=3e-3, bucket_bytes=DDP_BUCKET_BYTES,
+              batch_per_rank=DDP_B, seq_len=DDP_S)
+    world_kw = dict(n_ranks=2, max_chunk_bytes=DDP_CHUNK_BYTES)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tr, world = ddp_trainer(device, cfg, world_kw,
+                                os.path.join(tmp, "shift"),
+                                ckpt_every=10 * DDP_STEPS, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        with ddp_recorded(tr, kill_after=DDP_KILL) as rec:
+            run = tr.train(world, on_step=rec["on_step"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        shift_s = time.perf_counter() - t0
+        losses = _losses(run)
+        print(f"ddp gpt2-124m ShiftLib: losses {losses}; step ms "
+              f"{rec['step_ms']}; rank fwd+bwd ms {rec['rank_ms']}; "
+              f"gradient copy ms {rec['copy_ms']}; fabric host s "
+              f"{rec['fabric_s']}; AdamW ms {rec['adamw_ms']}; virtual "
+              f"grad ms {[x * 1e3 for x in run.step_grad_times]}; "
+              f"fallbacks {run.fallbacks} recoveries {run.recoveries} "
+              f"restarts {run.restarts}; saves {rec['saves']}; peak "
+              f"{peak_gb:.2f} GB; launches a step {rec['counts']}")
+        check(run.final_step == DDP_STEPS and run.fallbacks >= 1
+              and run.restarts == 0, f"ddp: {run_fields(run)}")
+        for i, n in enumerate(rec["counts"]):
+            check(n == want, f"ddp step {i + 1}: launches {n}, want "
+                             f"exactly {want}")
+        check(not rec["sum_faults"],
+              f"ddp step 1: the fabric's sum is wrong: {rec['sum_faults']}")
+        latest = tr.store.latest_step()
+        meta = {} if latest is None else json.loads(open(os.path.join(
+            tr.store.root, f"step-{latest:08d}", "meta.json")).read())
+        check(meta.get("reason") == "post-fallback" and rec["saves"]
+              and all(s["reason"] == "post-fallback" for s in rec["saves"]),
+              f"ddp: checkpoints {rec['saves']}, latest meta {meta}")
+        # one rank's gradient again, from the same params and batch
+        _, grads = tr._grad_fn(rec["init_params"], tr._batch(0, 0))
+        again, _ = tr._flatten_grads(grads)
+        del grads
+        differ = int(np.count_nonzero(again.view(np.uint32)
+                                      != rec["inputs"][0].view(np.uint32)))
+        repeat = differ == 0
+        print(f"ddp: step 1's all-reduce equals the float32 sum of the "
+              f"ranks' gradients bit for bit: {not rec['sum_faults']}; "
+              f"rank 0's gradient computed again from the same params and "
+              f"batch equals step 1's bit for bit: {repeat} ({differ} of "
+              f"{again.size} elements differ)")
+        check(repeat, "ddp: a rank's gradient does not repeat bit for bit")
+        # a step's loss is taken on that step's batches, new ones each
+        # step: at vocab 50257 each of the stream's bigrams comes up less
+        # than once in a step's 8192 tokens, so 4 steps cannot learn it
+        # and the loss stays at ln(50257) = 10.825 within the batches'
+        # spread. What 4 steps do fit is the data they saw: step 1's
+        # batches must score lower at the final params than at the first.
+        with torch.no_grad():
+            seen = float(np.mean([tr.model.loss(rec["params"],
+                                                tr._batch(r, 0)).item()
+                                  for r in range(tr.n)]))
+        print(f"ddp: step 1's batches: loss {losses[0]:.6f} at the first "
+              f"params, {seen:.6f} at the final params; the fourth step's "
+              f"loss (its own batches) {losses[-1]:.6f}")
+        check(all(np.isfinite(losses)) and np.isfinite(seen)
+              and seen < losses[0],
+              f"ddp: losses {losses}, step 1's batches at the final "
+              f"params {seen}")
+        rank_ms = float(np.median(rec["rank_ms"][2:]))
+        profile = device_window(lambda: tr._grad_fn(
+            rec["init_params"], tr._batch(0, 0)), rank_ms)
+        shift = {"rec": rec, "run": run, "peak_gb": peak_gb,
+                 "phase_s": shift_s, "seen_loss": seen,
+                 "rank_profile": profile}
+        del tr, again
+        rec["inputs"] = rec["init_params"] = rec["params"] = None
+        torch.cuda.empty_cache()
+
+        # the baseline: StandardLib ranks, the same kill, checkpoint-restart
+        t0 = time.perf_counter()
+        tr, world = ddp_trainer(device, cfg, dict(world_kw,
+                                                  lib_kind="standard"),
+                                os.path.join(tmp, "standard"),
+                                ckpt_every=DDP_KILL, **kw)
+        with ddp_recorded(tr, kill_after=DDP_KILL) as brec:
+            try:
+                tr.train(world, on_step=brec["on_step"])
+                rn = None
+            except TR.RestartNeeded as e:
+                rn = e
+            check(rn is not None, "ddp baseline: the StandardLib run did "
+                                  "not crash on the killed NIC")
+            tr.cluster.recover_nic(DDP_NIC)
+            cluster, libs, world = build_world(**dict(world_kw,
+                                                      lib_kind="standard"))
+            tr.cluster, tr.libs = cluster, libs
+            base = TR.resume_training(tr, world, rn,
+                                      on_step=brec["on_step"])
+        base_s = time.perf_counter() - t0
+        b_losses = _losses(base)
+        print(f"ddp gpt2-124m StandardLib baseline: losses {b_losses}; "
+              f"restarts {base.restarts}, final step {base.final_step}; "
+              f"virtual grad ms {[x * 1e3 for x in base.step_grad_times]}; "
+              f"saves {brec['saves']}; restores {brec['restores']}; step ms "
+              f"{brec['step_ms']}")
+        check(base.final_step == DDP_STEPS and base.restarts == 1
+              and [r["step"] for r in brec["restores"]] == [DDP_KILL],
+              f"ddp baseline: {run_fields(base)}, restarts {base.restarts},"
+              f" restores {brec['restores']}")
+        check(all(np.isfinite(b_losses)), f"ddp baseline: {b_losses}")
+        del tr
+        torch.cuda.empty_cache()
+
+    ms = lambda xs: [x * 1e3 for x in xs]
+    line = {"ddp": {
+        "model": "gpt2-124m (12 layers, d=768, vocab 50257, f32 params, "
+                 "bf16 activations, remat full, random weights)",
+        "card": card,
+        "world": f"2 ranks on one card, in turn; build_world(n_ranks=2, "
+                 f"max_chunk_bytes={DDP_CHUNK_BYTES}); bucket_bytes="
+                 f"{DDP_BUCKET_BYTES}; {DDP_B} x {DDP_S} tokens a rank",
+        "kill": f"fail_nic({DDP_NIC}) after step {DDP_KILL}",
+        "step_ms": rec["step_ms"],
+        "rank_fwd_bwd_ms": rec["rank_ms"],
+        "grad_copy_ms": rec["copy_ms"],
+        "fabric_host_s": rec["fabric_s"],
+        "adamw_ms": rec["adamw_ms"],
+        "virtual_grad_ms": ms(run.step_grad_times),
+        "virtual_grad_ms_healthy": {
+            "shift": ms(run.step_grad_times[:DDP_KILL]),
+            "standard": ms(base.step_grad_times[:DDP_KILL])},
+        "fallbacks": run.fallbacks, "recoveries": run.recoveries,
+        "restarts": {"shift": run.restarts, "standard": base.restarts},
+        "saves": rec["saves"] + [dict(s, run="standard")
+                                 for s in brec["saves"]],
+        "restores": brec["restores"],
+        "losses": {"shift": _losses(run), "standard": b_losses},
+        "step1_batches_loss_at_final_params": shift["seen_loss"],
+        "rank_fwd_bwd_profile": shift["rank_profile"],
+        "peak_memory_gb": shift["peak_gb"],
+        "launches_per_step": rec["counts"],
+        "phase_s": {"shift": shift["phase_s"], "standard": base_s}}}
+    total = {k: sum(c[k] for c in rec["counts"]) for k in rec["counts"][0]}
+    return total, line
+
+
+def ddp(device, card) -> tuple:
+    """The data-parallel phase: (a) the float32 smoke trainer on the card
+    against the CPU, (b) gpt2-124m at full width with a NIC killed, and
+    its StandardLib baseline. Returns (launches of (b)'s ShiftLib run,
+    the ddp line)."""
+    t0 = time.perf_counter()
+    smoke = ddp_smoke_matches_cpu(device)
+    launches, line = ddp_full_width(device, card)
+    line["ddp"]["smoke_f32"] = smoke
+    line["ddp"]["phase_wall_s"] = time.perf_counter() - t0
+    print(f"ddp phase: {line['ddp']['phase_wall_s']:.1f} s on {card}")
+    return launches, line
+
+
+# ---------------------------------------------------------------------------
 # zamba2-1.2b serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2518,6 +2949,9 @@ def main() -> None:
     launches[f"train ({TRAIN_STEPS} steps)"] = {
         n: sum(c[n] for c in per_step) for n in per_step[0]}
     torch.cuda.empty_cache()
+    launches[f"ddp ({DDP_STEPS} steps, 2 ranks)"], ddp_line = ddp(device,
+                                                                  card)
+    torch.cuda.empty_cache()
     z_launches, zamba = zamba2(device, card)
     launches["zamba2 generate"] = z_launches["generate"]
     torch.cuda.empty_cache()
@@ -2542,6 +2976,7 @@ def main() -> None:
     print(json.dumps(training))
     print(json.dumps(zamba))
     print(json.dumps(rwkv))
+    print(json.dumps(ddp_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

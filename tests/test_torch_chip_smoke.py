@@ -6,13 +6,16 @@ out, a K/V tile dropped, the causal edge off by one, keys or queries
 [128, 256) dropped, one head of a GQA group) are each rejected by the
 limits that hold the kernels on the card, and the fused-QKV case hands over
 strided views. The ptxas report of the ``hopper`` kernels fails the run on a
-stack frame, a spill or a serialised ``wgmma``.
+stack frame, a spill or a serialised ``wgmma``. The ddp phase's payload
+check accepts the port's bucketed all-reduce on the CPU and rejects two
+planted faults: a bucket left unreduced and one element changed.
 """
 
 import re
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -515,3 +518,51 @@ def test_the_profile_counts_every_b3_device_kernel():
     assert launched and all(any(w in name for w in CS.B3_KERNELS)
                             for name in launched)
     assert all(w in source for w in CS.B3_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# the ddp phase's payload check: the fabric's sum, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _port_allreduce(skip_bucket=None):
+    """Seeded float32 gradient vectors of 2 ranks through the port's
+    bucketed all-reduce on the CPU (64 KiB buckets), the bucket
+    ``skip_bucket`` never issued: (inputs, outputs, bucket bounds)."""
+    from repro_torch.collectives import build_world
+
+    _, _, world = build_world(n_ranks=2, channels=2,
+                              max_chunk_bytes=1 << 14)
+    rng = np.random.RandomState(5)
+    vecs = [rng.standard_normal(100_003).astype(np.float32)
+            for _ in range(2)]
+    inputs = [v.copy() for v in vecs]
+    bounds = world.aligned_bucket_bounds(vecs[0].size, 4, 1 << 16)
+    world.wait_all([world.allreduce_async([v[lo:hi] for v in vecs])
+                    for i, (lo, hi) in enumerate(bounds)
+                    if i != skip_bucket])
+    return inputs, vecs, bounds
+
+
+def test_ddp_sum_check_accepts_the_fabrics_sum():
+    inputs, outputs, bounds = _port_allreduce()
+    assert len(bounds) > 4
+    assert CS.fabric_sum_faults(inputs, outputs) == []
+
+
+@pytest.mark.parametrize("fault", ["one bucket left unreduced",
+                                   "one element changed"])
+def test_ddp_sum_check_rejects_planted_faults(fault):
+    if fault == "one bucket left unreduced":
+        inputs, outputs, bounds = _port_allreduce(skip_bucket=3)
+    else:
+        inputs, outputs, _ = _port_allreduce()
+        outputs[1][77_777] = np.nextafter(outputs[1][77_777],
+                                          np.float32(np.inf))
+    faults = CS.fabric_sum_faults(inputs, outputs)
+    if fault == "one bucket left unreduced":
+        lo, hi = bounds[3]
+        assert len(faults) == 2 and f"first at {lo}" in faults[0]
+    else:
+        assert faults == ["rank 1: 1 of 100003 elements differ from the "
+                          "float32 sum, first at 77777"]

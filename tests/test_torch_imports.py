@@ -1,6 +1,7 @@
-"""The port stands alone: importing it, serving (dense, hybrid and rwkv6) and
-taking a train step on the CPU loads neither ``jax`` nor any module of
-``repro``; and it never moves to the CPU on its own."""
+"""The port stands alone: importing it, serving (dense, hybrid and rwkv6),
+taking a train step and a data-parallel step over its own fabric on the
+CPU loads neither ``jax`` nor any module of ``repro``; and it never moves
+to the CPU on its own."""
 
 import os
 import subprocess
@@ -55,6 +56,14 @@ reng = ServeEngine(rmodel, rmodel.init(torch.Generator().manual_seed(0)),
                    max_len=16, device="cpu")
 out = reng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
 assert out.shape == (2, 7), out.shape
+from repro_torch.collectives import build_world
+from repro_torch.train import build_smoke_trainer
+import tempfile
+cluster, libs, world = build_world(n_ranks=2)
+with tempfile.TemporaryDirectory() as ckpt:
+    run = build_smoke_trainer(cluster, libs, steps=1, ckpt_dir=ckpt,
+                              device="cpu").train(world)
+assert run.final_step == 1 and np.isfinite(run.timeline[0][2])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
