@@ -35,7 +35,18 @@ and read just after, that each went through the kernels:
   checkpoint; then the ``StandardLib`` baseline crashes on the same kill,
   restores its step-2 checkpoint and resumes to step 4. Before it, the
   float32 smoke trainer on the card against the CPU (losses, virtual
-  accounting) and its flat, bucketed and hooked runs, bit for bit.
+  accounting) and its flat, bucketed and hooked runs, bit for bit;
+* the fault campaigns through ``repro_torch.scenarios.run_scenario``:
+  ``rail_kill_striped`` on ``ddp_hooked`` (2 steps) and
+  ``sender_nic_down`` on ``ddp`` under the adaptive fault policy, each
+  on the card and on the CPU with equal fingerprints, no violated
+  invariant and exactly the B1, B2a and B2b launches their steps give
+  (the hooked cell also reads the reference's fault cell: completed, 2
+  fallbacks, 0 payload mismatches, overlap 0.880795); then
+  ``sender_nic_down`` on ``ddp`` with gpt2-124m at full width (4 steps,
+  25 MiB buckets of 1 MiB chunks): no violated invariant, >= 1 fallback,
+  48 B1, 24 B2a and 24 B2b each step, and the fault log's virtual times
+  printed beside each step's all-reduce.
 
 It holds the kernel path against the plain path at full width (logits
 while serving, loss and gradients while training; for zamba2 and rwkv6
@@ -57,6 +68,9 @@ the train step, and prints:
   ShiftLib and StandardLib runs side by side), fallbacks, recoveries and
   restarts, the checkpoint saves and the restore (ms and bytes), both
   runs' losses, peak memory and the launches of each step;
+* a ``{"campaign": ...}`` line: each cell's fingerprint agreement,
+  fallbacks, recoveries, overlap, decisions, launches and wall s, the
+  full-width cell's fault and all-reduce times, and the phase's wall s;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
@@ -114,6 +128,8 @@ from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import flatten, unflatten  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.scenarios import SCENARIOS, run_scenario  # noqa: E402
+from repro_torch.scenarios import engine as SE  # noqa: E402
 from repro_torch.serving import (RequestScheduler, ServeEngine,  # noqa: E402
                                  TPServeEngine)
 from repro_torch.train import trainer as TR  # noqa: E402
@@ -236,6 +252,30 @@ DDP_B, DDP_S, DDP_STEPS, DDP_KILL = 4, 1024, 4, 2
 DDP_BUCKET_BYTES, DDP_CHUNK_BYTES = 25 << 20, 1 << 20
 DDP_NIC = "host1/mlx5_0"
 
+# the fault campaigns through the port's run_scenario: (a) smoke-width
+# cells (scenario, workload, keywords) on the card and on the CPU, with
+# equal fingerprints; (b) one ddp cell with gpt2-124m at full width, the
+# ddp phase's bucket and chunk sizes (16 KiB chunks would cost the host
+# many seconds of fabric a step). HOOKED_FAULT_CELL is BENCH_core.json's
+# ddp_hook_overlap.fault_cell, which the reference printed.
+CAMPAIGN_SMOKE = (("rail_kill_striped", "ddp_hooked", {"steps": 2}),
+                  ("sender_nic_down", "ddp",
+                   {"policy": "adaptive", "steps": 6}))
+CAMPAIGN_SMOKE_LAYERS = 2    # build_smoke_trainer's model
+# Each smoke cell's card losses against its CPU losses, relative: the bf16
+# model differs by the order of its sums (measured 1.4e-4 on an H100,
+# PERF.md). The limit must reject planted faults of the plain attention in
+# the ddp cell, whose 6 steps give a backward fault room to show (on the
+# CPU 1.5e-3 with delta left out, 9.2e-3 with the causal edge off by one).
+CAMPAIGN_LOSS_REL = 4e-4
+CAMPAIGN_LOSS_FAULTS = ("backward: delta left out",
+                        "forward: causal edge off by one")
+HOOKED_FAULT_CELL = {"completed": True, "fallbacks": 2,
+                     "payload_mismatches": 0, "overlap_fraction": 0.880795}
+CAMPAIGN_FULL_SCENARIO = "sender_nic_down"
+CAMPAIGN_FULL = dict(steps=4, bucket_bytes=25 << 20,
+                     max_chunk_bytes=1 << 20)
+
 SERVE_MAX_LEN = 544          # 512-token prompts + 32 new tokens (both models)
 PROMPT_LENS = [128, 256, 384, 512]
 N_NEW = 32
@@ -338,7 +378,13 @@ def flash_cases():
              ("MHA", 1, 2, 2, 32, 32, 16, bf, True),
              ("MQA", 1, 4, 1, 48, 48, 32, f32, True),
              ("MQA", 1, 4, 1, 48, 48, 32, bf, True),
-             ("MHA non-causal Sq<Sk", 1, 2, 2, 16, 64, 16, f32, False)]
+             ("MHA non-causal Sq<Sk", 1, 2, 2, 16, 64, 16, f32, False),
+             # the campaign phase's trainers: the smoke model (bf16 in the
+             # campaign cells, float32 in the ddp phase) and gpt2-124m
+             # at full width, each 2 x 32 tokens a rank
+             ("smoke trainer", 2, 4, 4, 32, 32, 32, bf, True),
+             ("smoke trainer", 2, 4, 4, 32, 32, 32, f32, True),
+             ("gpt2-124m campaign", 2, 12, 12, 32, 32, 64, bf, True)]
     # the bf16 body's 128-row query blocks and 128-key tiles: lengths on
     # either side of one and two tiles, at both model head dims
     for hd in (64, 128):
@@ -554,6 +600,7 @@ def bwd_cases():
               bf, True),
              ("smoke trainer", 2, 4, 4, 32, 32, 32, bf, True),
              ("smoke trainer", 2, 4, 4, 32, 32, 32, f32, True),
+             ("gpt2-124m campaign", 2, 12, 12, 32, 32, 64, bf, True),
              ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, True),
              ("GQA ragged", 2, 8, 2, 77, 77, 128, bf, False),
              ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, True),
@@ -2033,6 +2080,227 @@ def ddp(device, card) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the fault campaigns: run_scenario cells with the trainer on the card
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def campaign_recorded():
+    """Every DDPTrainer run inside, by wrapping the class's ``train`` and
+    ``_allreduce_grads``: the launch counts of each step (read and set to
+    0 as the step ends, before the workload's own ``on_step``) and each
+    all-reduce's virtual window (sim time before, after)."""
+    rec = {"counts": [], "sync": []}
+    train, allreduce = TR.DDPTrainer.train, TR.DDPTrainer._allreduce_grads
+
+    def t_train(self, world, on_step=None):
+        def step_done(step, t, loss):
+            rec["counts"].append(read_counts())
+            zero_counts()
+            if on_step is not None:
+                on_step(step, t, loss)
+        return train(self, world, on_step=step_done)
+
+    def t_allreduce(self, world, run, vecs):
+        t0 = self.cluster.sim.now
+        allreduce(self, world, run, vecs)
+        rec["sync"].append((t0, self.cluster.sim.now))
+
+    TR.DDPTrainer.train, TR.DDPTrainer._allreduce_grads = t_train, t_allreduce
+    zero_counts()
+    try:
+        yield rec
+    finally:
+        TR.DDPTrainer.train, TR.DDPTrainer._allreduce_grads = \
+            train, allreduce
+
+
+def campaign_cell(device, scenario: str, workload: str, **kw):
+    """One cell through the port's ``run_scenario`` on ``device``, timed
+    on the host clock; a card run is counted from 0 and a ``ddp_hooked``
+    cell computes its clean reference on that device anew. Returns
+    (result, wall s, launches)."""
+    if torch.device(device).type == "cuda":
+        SE._HOOKED_REFERENCE.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    r = run_scenario(SCENARIOS[scenario], workload=workload, device=device,
+                     **kw)
+    sync(device)
+    return r, time.perf_counter() - t0, read_counts()
+
+
+def campaign_smoke(device) -> list:
+    """(a) Each CAMPAIGN_SMOKE cell on the card and on the CPU: ``ok``,
+    the same fingerprint, exact B1/B2a/B2b counts on the card and no
+    plain launch; the hooked cell reads BENCH_core.json's fault cell, the
+    ddp cell's decision log holds a checkpoint."""
+    L = CAMPAIGN_SMOKE_LAYERS
+    cells = []
+    for scenario, workload, kw in CAMPAIGN_SMOKE:
+        card_r, card_s, n = campaign_cell(device, scenario, workload, **kw)
+        cpu_r, cpu_s, _ = campaign_cell("cpu", scenario, workload, **kw)
+        same = card_r.fingerprint() == cpu_r.fingerprint()
+        loss_rel = losses_rel(card_r.loss_trace, cpu_r.loss_trace)
+        steps = kw["steps"]
+        # each rank's step runs B1 twice a layer (remat "full") and each
+        # backward kernel once; the hooked cell's clean reference trains
+        # the same steps again
+        runs = 2 if workload == "ddp_hooked" else 1
+        bwd = runs * steps * 2 * L
+        want = {k: 0 for k in PLAIN + ("decode_attention", "ssd_scan",
+                                       "rwkv6_scan")}
+        want.update(flash_attention=2 * bwd, flash_bwd_dq=bwd,
+                    flash_bwd_dkv=bwd)
+        decisions = [d[2] for d in card_r.decision_log]
+        print(f"campaign {scenario} x {workload} {kw}: card ok "
+              f"{card_r.ok} {card_r.violations}, cpu ok {cpu_r.ok}; "
+              f"fingerprints equal {same}; completed {card_r.completed}, "
+              f"fallbacks {card_r.fallbacks}, recoveries "
+              f"{card_r.recoveries}, payload mismatches "
+              f"{card_r.payload_mismatches}, overlap "
+              f"{card_r.overlap_fraction:.6f}, decisions {decisions}; "
+              f"losses card {card_r.loss_trace} cpu {cpu_r.loss_trace}, "
+              f"rel {loss_rel:.3g} (limit {CAMPAIGN_LOSS_REL}); "
+              f"wall s card {card_s:.2f} cpu {cpu_s:.2f}; card launches {n}")
+        check(card_r.ok and cpu_r.ok,
+              f"campaign {scenario} x {workload}: violations card "
+              f"{card_r.violations}, cpu {cpu_r.violations}")
+        check(same, f"campaign {scenario} x {workload}: the card's "
+                    f"fingerprint differs from the CPU's")
+        check(n == want, f"campaign {scenario} x {workload}: launches {n}, "
+                         f"want exactly {want}")
+        check(loss_rel <= CAMPAIGN_LOSS_REL,
+              f"campaign {scenario} x {workload}: card and CPU losses "
+              f"differ by {loss_rel:.3g}")
+        if workload == "ddp_hooked":
+            got = {"completed": card_r.completed,
+                   "fallbacks": card_r.fallbacks,
+                   "payload_mismatches": card_r.payload_mismatches,
+                   "overlap_fraction": round(card_r.overlap_fraction, 6)}
+            check(got == HOOKED_FAULT_CELL,
+                  f"campaign hooked fault cell: {got}, want "
+                  f"{HOOKED_FAULT_CELL}")
+        else:
+            check("checkpoint" in decisions,
+                  f"campaign {scenario} x {workload}: no checkpoint "
+                  f"decision in {decisions}")
+            faults = campaign_loss_faults(device, scenario, workload, kw,
+                                          cpu_r.loss_trace)
+        cells.append({
+            "scenario": scenario, "workload": workload, "kw": kw,
+            "ok": card_r.ok, "fingerprint_equal_cpu": same,
+            "completed": card_r.completed, "fallbacks": card_r.fallbacks,
+            "recoveries": card_r.recoveries,
+            "payload_mismatches": card_r.payload_mismatches,
+            "overlap_fraction": card_r.overlap_fraction,
+            "decisions": decisions, "launches": n,
+            "losses": {"card": card_r.loss_trace, "cpu": cpu_r.loss_trace},
+            "loss_rel": loss_rel,
+            "planted_fault_loss_rel": faults if workload == "ddp" else None,
+            "wall_s": {"card": card_s, "cpu": cpu_s}})
+    return cells
+
+
+def losses_rel(got, ref) -> float:
+    """The largest relative difference of two loss traces of one length."""
+    check(got is not None and ref is not None and len(got) == len(ref),
+          f"loss traces differ in length: {got} against {ref}")
+    return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+
+def campaign_loss_faults(device, scenario, workload, kw, cpu_losses) -> dict:
+    """The cell on the card again with each CAMPAIGN_LOSS_FAULTS route of
+    the plain attention: CAMPAIGN_LOSS_REL must reject every one.
+    Returns {fault: relative loss difference against the CPU}."""
+    routes = model_faults(CAMPAIGN_SMOKE_LAYERS)
+    out = {}
+    for fault in CAMPAIGN_LOSS_FAULTS:
+        with plain_attention(routes[fault]):
+            r, _, _ = campaign_cell(device, scenario, workload, **kw)
+        out[fault] = losses_rel(r.loss_trace, cpu_losses)
+        print(f"  planted fault '{fault}' in {scenario} x {workload}: loss "
+              f"rel {out[fault]:.3g} against the CPU, rejected "
+              f"{out[fault] > CAMPAIGN_LOSS_REL}")
+        check(out[fault] > CAMPAIGN_LOSS_REL,
+              f"campaign loss limit passes a planted fault ({fault})")
+    return out
+
+
+def campaign_full_width(device) -> tuple:
+    """(b) sender_nic_down on ddp with gpt2-124m at full width: ``ok``,
+    completed, >= 1 fallback, finite losses, exactly 2 x 2L B1 and 2L of
+    each backward kernel a step. Prints the fault log's virtual times
+    beside each step's all-reduce window. Returns (launches, cell)."""
+    cfg = gpt2_124m.config()
+    L = cfg.n_layers
+    want = {k: 0 for k in PLAIN + ("decode_attention", "ssd_scan",
+                                   "rwkv6_scan")}
+    want.update(flash_attention=2 * 2 * L, flash_bwd_dq=2 * L,
+                flash_bwd_dkv=2 * L)
+    with campaign_recorded() as rec:
+        t0 = time.perf_counter()
+        r = run_scenario(SCENARIOS[CAMPAIGN_FULL_SCENARIO], workload="ddp",
+                         device=device, model_cfg=cfg, **CAMPAIGN_FULL)
+        sync(device)
+        wall_s = time.perf_counter() - t0
+    steps = CAMPAIGN_FULL["steps"]
+    sync_ms = [(a * 1e3, b * 1e3) for a, b in rec["sync"]]
+    faults = [(t * 1e3, kind, gid) for t, kind, gid in r.fault_log]
+    landed = [next((i + 1 for i, (a, b) in enumerate(sync_ms)
+                    if a <= t <= b), None) for t, _, _ in faults]
+    print(f"campaign {CAMPAIGN_FULL_SCENARIO} x ddp, gpt2-124m full width "
+          f"{CAMPAIGN_FULL}: ok {r.ok} {r.violations}; completed "
+          f"{r.completed}, steps {r.rounds}, fallbacks {r.fallbacks}, "
+          f"recoveries {r.recoveries}, payload mismatches "
+          f"{r.payload_mismatches}, losses {r.loss_trace}; wall "
+          f"{wall_s:.1f} s; launches a step {rec['counts']}")
+    print(f"campaign full width: each step's all-reduce in virtual ms "
+          f"(start, end) {sync_ms}; faults (virtual ms, kind, NIC) "
+          f"{faults}, in the all-reduce of step {landed}")
+    check(r.ok and r.completed and r.fallbacks >= 1
+          and r.rounds == steps,
+          f"campaign full width: ok {r.ok} {r.violations}, completed "
+          f"{r.completed}, steps {r.rounds}, fallbacks {r.fallbacks}")
+    check(r.loss_trace is not None and len(r.loss_trace) == steps
+          and all(np.isfinite(r.loss_trace)),
+          f"campaign full width: losses {r.loss_trace}")
+    check(len(rec["counts"]) == steps
+          and all(n == want for n in rec["counts"]),
+          f"campaign full width: launches a step {rec['counts']}, want "
+          f"exactly {want} each")
+    total = {k: sum(c[k] for c in rec["counts"]) for k in rec["counts"][0]}
+    return total, {
+        "scenario": CAMPAIGN_FULL_SCENARIO, "workload": "ddp",
+        "model": "gpt2-124m (12 layers, d=768, vocab 50257, f32 params, "
+                 "bf16 activations, remat full, random weights), 2 ranks "
+                 "x 2 x 32 tokens",
+        "kw": CAMPAIGN_FULL, "ok": r.ok, "violations": r.violations,
+        "completed": r.completed, "steps": r.rounds,
+        "fallbacks": r.fallbacks, "recoveries": r.recoveries,
+        "payload_mismatches": r.payload_mismatches,
+        "losses": r.loss_trace, "fault_log_virtual_ms": faults,
+        "allreduce_virtual_ms": sync_ms, "fault_in_step": landed,
+        "launches_per_step": rec["counts"], "wall_s": wall_s}
+
+
+def campaign(device, card) -> tuple:
+    """The campaign phase: (a) the smoke-width cells on the card against
+    the CPU, (b) the full-width ddp cell. Returns (launches of the card
+    runs, the campaign line)."""
+    t0 = time.perf_counter()
+    cells = campaign_smoke(device)
+    total, full = campaign_full_width(device)
+    for c in cells:
+        for k in total:
+            total[k] += c["launches"][k]
+    phase_s = time.perf_counter() - t0
+    print(f"campaign phase: {phase_s:.1f} s on {card}")
+    return total, {"campaign": {"card": card, "smoke_cells": cells,
+                                "full_width": full, "phase_wall_s": phase_s}}
+
+
+# ---------------------------------------------------------------------------
 # zamba2-1.2b serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2952,6 +3220,8 @@ def main() -> None:
     launches[f"ddp ({DDP_STEPS} steps, 2 ranks)"], ddp_line = ddp(device,
                                                                   card)
     torch.cuda.empty_cache()
+    launches["campaign (card runs)"], campaign_line = campaign(device, card)
+    torch.cuda.empty_cache()
     z_launches, zamba = zamba2(device, card)
     launches["zamba2 generate"] = z_launches["generate"]
     torch.cuda.empty_cache()
@@ -2977,6 +3247,7 @@ def main() -> None:
     print(json.dumps(zamba))
     print(json.dumps(rwkv))
     print(json.dumps(ddp_line))
+    print(json.dumps(campaign_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

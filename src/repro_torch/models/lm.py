@@ -172,8 +172,8 @@ class LM:
         cfg = self.cfg
         if cfg.remat not in ("full", "none"):
             raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (it comes with the "
-                f"data-parallel training slice); use 'full' or 'none'")
+                f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
+                f"remat 'dots'); use 'full' or 'none'")
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
@@ -341,8 +341,8 @@ class HybridLM(LM):
         cfg = self.cfg
         if cfg.remat not in ("full", "none"):
             raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (it comes with the "
-                f"data-parallel training slice); use 'full' or 'none'")
+                f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
+                f"remat 'dots'); use 'full' or 'none'")
         G, E, R = self._layout()
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
@@ -522,8 +522,8 @@ class RwkvLM(LM):
         cfg = self.cfg
         if cfg.remat not in ("full", "none"):
             raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (it comes with the "
-                f"data-parallel training slice); use 'full' or 'none'")
+                f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
+                f"remat 'dots'); use 'full' or 'none'")
         x = self._embed(params, tokens)
         for blk in _layers(params["blocks"], cfg.n_layers):
             x = checkpoint(self._train_rwkv, x, blk, use_reentrant=False) \

@@ -4,8 +4,9 @@
 the same compute as :class:`~repro_torch.serving.engine.ServeEngine`, one
 synchronization point (``sync_rounds``) per prefill and decode step, and
 the slot cache of continuous batching (``start_batch`` / ``admit`` /
-``decode_batch``). The fabric that carries logits and K/V rows between
-ranks is not ported yet, so any ``world`` raises.
+``decode_batch``). Serving over a ``JcclWorld``, which carries logits and
+K/V rows between ranks on the port's fabric, is not ported yet (ROADMAP
+A14, after MoE, A12), so any ``world`` raises.
 
 Continuous batching: a prompt is right-padded to ``prefill_len``, prefilled
 alone and spliced into its slot with its own length; a decode step advances
@@ -37,8 +38,9 @@ class TPServeEngine:
                 f"(dense), not {model.cfg.family!r}")
         if world is not None:
             raise NotImplementedError(
-                "serving over a JCCL world needs the port of the fabric "
-                "(core/ and collectives/), a later slice; pass world=None")
+                "TPServeEngine over a JcclWorld (serving on the port's "
+                "fabric) is not ported yet (ROADMAP A14, after MoE, A12); "
+                "pass world=None")
         self.device = resolve_device(device)
         self.model = model
         self.max_len = max_len

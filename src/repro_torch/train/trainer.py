@@ -507,7 +507,7 @@ def build_smoke_trainer(cluster, libs, steps: int = 6,
                         issue_as_produced: bool = False,
                         layer_compute_s: float = 0.0,
                         comm_timeout_s: Optional[float] = None,
-                        device="cuda") -> DDPTrainer:
+                        device="cuda", model_cfg=None) -> DDPTrainer:
     """Campaign-engine / CI-smoke entry point: a DDP trainer over a tiny
     model that finishes a handful of steps in seconds. The fault-scenario
     campaign (repro.scenarios) drives this as its heaviest workload.
@@ -517,9 +517,14 @@ def build_smoke_trainer(cluster, libs, steps: int = 6,
     worlds; ``issue_as_produced`` / ``layer_compute_s`` enable the
     backward-hook overlap path under the modeled per-segment compute
     cost (DESIGN.md §13). ``ckpt_dir`` None is ``repro-ckpt-smoke`` under
-    the temporary directory; the model runs on ``device``."""
-    model_cfg = smoke_config("gpt2-124m", n_layers=2, d_model=128,
-                             n_heads=4, n_kv_heads=4, d_ff=512, vocab=512)
+    the temporary directory; the model runs on ``device``. ``model_cfg``
+    None is the reference's smoke model (gpt2-124m cut to 2 layers at
+    d=128); another config trains that model on the same 2 x 32 tokens a
+    rank."""
+    if model_cfg is None:
+        model_cfg = smoke_config("gpt2-124m", n_layers=2, d_model=128,
+                                 n_heads=4, n_kv_heads=4, d_ff=512,
+                                 vocab=512)
     if ckpt_dir is None:
         ckpt_dir = _tmp_dir("repro-ckpt-smoke")
     kw = {} if bucket_bytes is None else {"bucket_bytes": bucket_bytes}

@@ -566,3 +566,47 @@ def test_ddp_sum_check_rejects_planted_faults(fault):
     else:
         assert faults == ["rank 1: 1 of 100003 elements differ from the "
                           "float32 sum, first at 77777"]
+
+
+def _campaign_attention_shapes():
+    """(B, H, KV, Sq, Sk, hd, dtype) of every attention call of the ddp
+    smoke cell on the CPU, recorded through the plain route."""
+    seen = set()
+
+    def route(q, k, v, causal=True, scale=None):
+        assert causal
+        seen.add((q.shape[0], q.shape[2], k.shape[2], q.shape[1],
+                  k.shape[1], q.shape[3], q.dtype))
+        return CS.plain_train(q, k, v, causal=causal, scale=scale)
+
+    scenario, workload, kw = CS.CAMPAIGN_SMOKE[1]
+    with CS.plain_attention(route):
+        CS.campaign_cell("cpu", scenario, workload, **kw)
+    return seen
+
+
+def test_campaign_attention_shapes_are_kernel_cases():
+    """The campaign phase's attention shapes, the smoke model's and
+    gpt2-124m's at full width on the same 2 x 32 tokens a rank, are
+    cases of both B1's and B2's checks against their plain versions."""
+    (B, H, KV, Sq, Sk, hd, dt), = _campaign_attention_shapes()
+    cfg = CS.gpt2_124m.config()
+    want = {(B, H, KV, Sq, Sk, hd, dt, True, "contiguous"),
+            (B, cfg.n_heads, cfg.n_kv_heads, Sq, Sk,
+             cfg.d_model // cfg.n_heads, dt, True, "contiguous")}
+    for cases in (CS.flash_cases(), CS.bwd_cases()):
+        assert want <= {c[1:] for c in cases}
+
+
+def test_campaign_loss_limit_rejects_planted_faults():
+    """The smoke cells' card-against-CPU loss limit, on the CPU: the ddp
+    cell against itself passes, and its planted faults of the plain
+    attention are each rejected."""
+    scenario, workload, kw = CS.CAMPAIGN_SMOKE[1]
+    clean, _, _ = CS.campaign_cell("cpu", scenario, workload, **kw)
+    again, _, _ = CS.campaign_cell("cpu", scenario, workload, **kw)
+    assert CS.losses_rel(again.loss_trace, clean.loss_trace) == 0.0
+    faults = CS.campaign_loss_faults("cpu", scenario, workload, kw,
+                                     clean.loss_trace)
+    assert set(faults) == set(CS.CAMPAIGN_LOSS_FAULTS)
+    assert all(rel > CS.CAMPAIGN_LOSS_REL for rel in faults.values())

@@ -98,7 +98,8 @@ def test_the_import_scan_sees_lazy_and_nested_imports(tmp_path):
 def test_port_fabric_modules_are_documented():
     problems = check_docstrings.check(
         packages=("src/repro_torch/core", "src/repro_torch/collectives",
-                  "src/repro_torch/train"))
+                  "src/repro_torch/train", "src/repro_torch/scenarios",
+                  "src/repro_torch/policy"))
     assert not problems, "\n".join(problems)
 
 

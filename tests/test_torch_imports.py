@@ -1,7 +1,8 @@
 """The port stands alone: importing it, serving (dense, hybrid and rwkv6),
 taking a train step and a data-parallel step over its own fabric on the
-CPU loads neither ``jax`` nor any module of ``repro``; and it never moves
-to the CPU on its own."""
+CPU, and running a campaign cell (``repro_torch.scenarios``, with
+``repro_torch.policy`` imported) loads neither ``jax`` nor any module of
+``repro``; and it never moves to the CPU on its own."""
 
 import os
 import subprocess
@@ -64,6 +65,10 @@ with tempfile.TemporaryDirectory() as ckpt:
     run = build_smoke_trainer(cluster, libs, steps=1, ckpt_dir=ckpt,
                               device="cpu").train(world)
 assert run.final_step == 1 and np.isfinite(run.timeline[0][2])
+import repro_torch.policy
+from repro_torch.scenarios import SCENARIOS, run_scenario
+cell = run_scenario(SCENARIOS["sender_nic_down"], "pingpong")
+assert cell.ok and cell.completed and cell.fallbacks >= 1, cell.violations
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
