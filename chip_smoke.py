@@ -46,7 +46,28 @@ and read just after, that each went through the kernels:
   ``sender_nic_down`` on ``ddp`` with gpt2-124m at full width (4 steps,
   25 MiB buckets of 1 MiB chunks): no violated invariant, >= 1 fallback,
   48 B1, 24 B2a and 24 B2b each step, and the fault log's virtual times
-  printed beside each step's all-reduce.
+  printed beside each step's all-reduce;
+* serving the moe family: the float32 llama4-maverick and kimi-k2 smoke
+  models on the card against the CPU, then llama4-maverick at full width
+  with 2 of its 48 layers and bf16 params (68.8 GB, after a check that
+  the card has that much free and 4 GB more) through
+  ``ServeEngine.generate`` (uniform and ragged) and ``RequestScheduler``
+  over ``TPServeEngine(world=None)``: exactly 2 flash-attention launches
+  a prefill or admission, 2 decode-attention launches a decode step, 0
+  plain; each layer's attention sublayer, kernels against plain versions
+  on the same recorded inputs, within 2e-2 (a planted fault in one
+  layer's plain attention must exceed it); the whole path's bf16 logits
+  and the share of tokens routed to another expert printed;
+* the ``serving`` campaign: ``sender_nic_down``, ``rail_kill_striped``
+  and ``double_rail_outage`` (tensor-parallel serving of the smoke MoE
+  model over a 2-rank world) on the card and on the CPU, with equal
+  fingerprints, the maskable cells completed with no token or payload
+  mismatch, the unmaskable one aborted loudly, and exactly one
+  flash-attention launch a layer and admission and one decode-attention
+  launch a layer and decode step; then the full-width llama4-maverick
+  engine over a 2-rank, 2-channel world, healthy and with host0's first
+  NIC killed mid-decode, giving the tokens of its ``world=None`` run
+  with no reconstruction mismatch and a fallback under the kill.
 
 It holds the kernel path against the plain path at full width (logits
 while serving, loss and gradients while training; for zamba2 and rwkv6
@@ -71,16 +92,26 @@ the train step, and prints:
 * a ``{"campaign": ...}`` line: each cell's fingerprint agreement,
   fallbacks, recoveries, overlap, decisions, launches and wall s, the
   full-width cell's fault and all-reduce times, and the phase's wall s;
+* a ``{"moe": ...}`` line: llama4-maverick's prefill ms, decode ms per
+  step, generate and scheduler tokens/s, device-busy ms and idle share,
+  peak memory, each layer's attention error and the routing share that
+  differs between the paths;
+* a ``{"serving_campaign": ...}`` line: each smoke cell's fingerprint
+  agreement, fallbacks, mismatches, launches and wall s, and the
+  full-width TP run's tokens per virtual second, healthy and under the
+  fault, with its wall s;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
   inputs, and the card's least time for the same work (``bound_ms``);
-  flash attention's entry also lists all three of its main-path shapes
-  (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward), and
+  flash attention's entry also lists all four of its main-path shapes
+  (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward,
+  llama4-maverick prefill), and
   the backward kernels' entries the time of the whole backward call
   (``bwd_ms``: delta, B2a and B2b), which compares with SDPA's; decode
-  attention's entry its three shapes (yi-6b serving, zamba2 decode, every
-  row in one chunk) and its time by the chunks a row holds
+  attention's entry its four shapes (yi-6b serving, zamba2 decode, every
+  row in one chunk, llama4-maverick serving) and its time by the chunks a
+  row holds
   (``ms_by_chunks``);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
@@ -92,6 +123,7 @@ of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -111,7 +143,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.collectives import build_world  # noqa: E402
-from repro_torch.configs import (gpt2_124m, rwkv6_3b, yi_6b,  # noqa: E402
+from repro_torch.configs import (gpt2_124m, kimi_k2_1t,  # noqa: E402
+                                 llama4_maverick, rwkv6_3b, yi_6b,
                                  zamba2_1p2b)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
@@ -281,6 +314,36 @@ PROMPT_LENS = [128, 256, 384, 512]
 N_NEW = 32
 SCHED_SLOTS, SCHED_REQUESTS, SCHED_PREFILL = 4, 8, 256
 
+# llama4-maverick at full width on one card: MOE_LAYERS of its 48 layers
+# with bf16 params, 34.4 B params or 68.8 GB (3 layers would be 101 GB).
+# The phase starts only with the params and MOE_HEADROOM_GB free (the
+# caches, the activations, the expert buffers, the float32 draw of one
+# embedding-sized leaf at init).
+MOE_LAYERS = 2
+MOE_HEADROOM_GB = 4.0
+# The moe path, kernel against plain: the whole-path bf16 logits are
+# printed, not gated (a routing flip between the paths sends a token to
+# another expert, and the path is then not comparable whole). Each layer's
+# attention sublayer on the kernel path's recorded inputs (the prefill and
+# 4 decode steps), kernels against plain versions: relative L2 within the
+# serving limit, which a planted fault of the plain attention confined to
+# one layer must exceed.
+MOE_ATTN_REL_L2 = LOGITS_REL_L2
+# The serving campaign: (a) these cells of the smoke MoE model on the card
+# and the CPU; (b) the moe phase's engine over a 2-rank, 2-channel world,
+# TP_FULL_REQUESTS requests of TP_FULL_TOKENS tokens on as many slots,
+# healthy and with TP_FULL_NIC killed half a step into decode (the perf
+# suite's serving_tp pattern). The ring all-gather sends each rank's shard
+# as one chunk, so a chunk must hold half a decode step's logits: 4 x
+# 202048 bf16 logits are 1.6 MB, 808 KB a rank; 1 MiB chunks, as the ddp
+# phase's.
+SERVING_CELLS = ("sender_nic_down", "rail_kill_striped",
+                 "double_rail_outage")
+TP_FULL_REQUESTS, TP_FULL_TOKENS = 4, 8
+TP_FULL_WORLD = dict(n_ranks=2, channels=2, probe_interval=5e-4,
+                     max_chunk_bytes=1 << 20, strict_order=False)
+TP_FULL_NIC = "host0/mlx5_0"
+
 
 def die(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -384,7 +447,15 @@ def flash_cases():
              # at full width, each 2 x 32 tokens a rank
              ("smoke trainer", 2, 4, 4, 32, 32, 32, bf, True),
              ("smoke trainer", 2, 4, 4, 32, 32, 32, f32, True),
-             ("gpt2-124m campaign", 2, 12, 12, 32, 32, 64, bf, True)]
+             ("gpt2-124m campaign", 2, 12, 12, 32, 32, 64, bf, True),
+             # the moe paths: llama4-maverick at full width, 5 query heads
+             # a K/V head (a 4 x 512 prefill, an admission at 256), and
+             # the serving campaign's smoke model (hd 16, an admission at
+             # its 12-token prefill length)
+             ("llama4 prefill", 4, 40, 8, 512, 512, 128, bf, True),
+             ("llama4 admit", 1, 40, 8, SCHED_PREFILL, SCHED_PREFILL, 128,
+              bf, True),
+             ("moe smoke admit", 1, 8, 2, 12, 12, 16, bf, True)]
     # the bf16 body's 128-row query blocks and 128-key tiles: lengths on
     # either side of one and two tiles, at both model head dims
     for hd in (64, 128):
@@ -433,7 +504,13 @@ def decode_cases():
              [1, 17, 63, 64]),
             ("MHA hd=64 chunk counts differ", 4, 32, 32, SERVE_MAX_LEN, 64,
              bf, [SERVE_MAX_LEN, 1, 300, 129]),
-            ("12 heads a K/V head", 2, 24, 2, 300, 64, bf, [300, 150])]
+            ("12 heads a K/V head", 2, 24, 2, 300, 64, bf, [300, 150]),
+            # the moe paths: llama4-maverick's decode at full width (5 query
+            # heads a K/V head in a block built for 8) and the serving
+            # campaign's smoke decode (hd 16, a free slot's length past S)
+            ("llama4 serving", 4, 40, 8, SERVE_MAX_LEN, 128, bf,
+             [n + N_NEW // 2 for n in PROMPT_LENS]),
+            ("moe smoke decode", 2, 8, 2, 32, 16, bf, [12, 45])]
 
 
 def rand_like_cases(gen, shapes, dtype, device):
@@ -977,10 +1054,12 @@ def check_refusals(device):
           "a refused call launched something")
 
 
-# B1's main-path shapes: (path, B, H, KV, S, hd), all bf16 and causal
+# B1's main-path shapes: (path, B, H, KV, S, hd), all bf16 and causal (the
+# llama4-maverick prefill: 5 query heads a K/V head)
 FLASH_TIMED = (("yi-6b prefill", 4, 32, 4, 512, 128),
                ("zamba2 prefill", 4, 32, 32, 512, 64),
-               ("gpt2 train forward", TRAIN_B, 12, 12, TRAIN_S, 64))
+               ("gpt2 train forward", TRAIN_B, 12, 12, TRAIN_S, 64),
+               ("llama4 prefill", 4, 40, 8, 512, 128))
 
 
 def time_flash(device, gen):
@@ -1012,12 +1091,15 @@ def time_flash(device, gen):
 
 # B3's main-path shapes: (path, B, H, KV, S, hd, lens), all bf16: a decode
 # step of yi-6b's ragged generate (32 layers' caches), of zamba2's generate,
-# and every row on the one-chunk path
+# every row on the one-chunk path, and llama4-maverick's ragged generate (5
+# query heads a K/V head)
 DECODE_TIMED = (("yi-6b serving", 4, 32, 4, SERVE_MAX_LEN, 128,
                  [n + N_NEW // 2 for n in PROMPT_LENS]),
                 ("zamba2 decode", 4, 32, 32, SERVE_MAX_LEN, 64,
                  [512 + N_NEW // 2] * 4),
-                ("one chunk", 4, 32, 4, SERVE_MAX_LEN, 128, [1, 17, 63, 64]))
+                ("one chunk", 4, 32, 4, SERVE_MAX_LEN, 128, [1, 17, 63, 64]),
+                ("llama4 serving", 4, 40, 8, SERVE_MAX_LEN, 128,
+                 [n + N_NEW // 2 for n in PROMPT_LENS]))
 
 
 def decode_sets(gen, B, H, KV, S, hd, device, n: int = 32):
@@ -1271,14 +1353,16 @@ def plain_train(q, k, v, causal=True, scale=None):
 
 
 @contextmanager
-def plain_attention(train_route=plain_train):
+def plain_attention(train_route=plain_train,
+                    decode_route=DR.decode_attention_ref):
     """The attention sublayer with the kernel wrappers swapped for their
     plain versions (forward, backward and decode): the yardstick of the
     full-width comparisons. ``train_route`` replaces the training and
-    prefill attention (the planted faults pass their own)."""
+    prefill attention, ``decode_route`` the decode attention (the planted
+    faults pass their own)."""
     saved = A.flash_attention_train, A.decode_attention
     A.flash_attention_train, A.decode_attention = \
-        train_route, DR.decode_attention_ref
+        train_route, decode_route
     try:
         yield
     finally:
@@ -1381,7 +1465,35 @@ def serve(device, card):
     check(rel <= LOGITS_REL_L2, "kernel path disagrees with the plain path")
 
     # step times at the uniform generate's shapes
-    torch.cuda.synchronize()
+    prefill_runs, decode_ms, profile = timed_steps(engine, prompts)
+    # one device kernel a B3 call: one call a layer and decode step
+    step = profile["decode_step"]
+    b3 = step and step["b3_kernels_per_step"]
+    print(f"yi-6b decode step: {b3} B3 device kernels for {cfg.n_layers} "
+          f"calls")
+    check(b3 == cfg.n_layers, f"yi-6b decode step: {b3} B3 device kernels, "
+                              f"not one for each of {cfg.n_layers} calls")
+    return launches, {
+        "serving": {
+            "model": "yi-6b (32 layers, d=4096, random bf16 weights)",
+            "card": card,
+            "prefill_ms": min(prefill_runs), "prefill_shape": "B=4 S=512",
+            "decode_ms_per_step": decode_ms, "decode_batch": 4,
+            "generate_uniform_s": t_uniform,
+            "generate_ragged_s": seconds["generate ragged"],
+            "generate_tokens_per_s": 4 * N_NEW / t_uniform,
+            "decode_tokens_per_s": 4 / (decode_ms / 1e3),
+            "scheduler_s": t_sched,
+            "scheduler_tokens_per_s": n_sched_tokens / t_sched,
+            "peak_memory_gb": peak_gb,
+            "logits_rel_l2_kernel_vs_plain": rel},
+        "profile": profile}
+
+
+def timed_steps(engine, prompts):
+    """(3 prefills' wall ms, the mean wall ms of 16 decode steps after
+    one, their profile): each timed on the host clock and synchronised,
+    the profile by :func:`profile_steps` against the best prefill."""
     prefill_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1396,29 +1508,9 @@ def serve(device, card):
         tok = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
-    # one device kernel a B3 call: one call a layer and decode step
-    step = profile["decode_step"]
-    b3 = step and step["b3_kernels_per_step"]
-    print(f"yi-6b decode step: {b3} B3 device kernels for {cfg.n_layers} "
-          f"calls")
-    check(b3 == cfg.n_layers, f"yi-6b decode step: {b3} B3 device kernels, "
-                              f"not one for each of {cfg.n_layers} calls")
-    return launches, {
-        "serving": {
-            "model": "yi-6b (32 layers, d=4096, random bf16 weights)",
-            "card": card,
-            "prefill_ms": min(prefill_ms), "prefill_shape": "B=4 S=512",
-            "decode_ms_per_step": decode_ms, "decode_batch": 4,
-            "generate_uniform_s": t_uniform,
-            "generate_ragged_s": seconds["generate ragged"],
-            "generate_tokens_per_s": 4 * N_NEW / t_uniform,
-            "decode_tokens_per_s": 4 / (decode_ms / 1e3),
-            "scheduler_s": t_sched,
-            "scheduler_tokens_per_s": n_sched_tokens / t_sched,
-            "peak_memory_gb": peak_gb,
-            "logits_rel_l2_kernel_vs_plain": rel},
-        "profile": profile}
+    del logits, cache
+    return prefill_ms, decode_ms, \
+        profile_steps(engine, prompts, min(prefill_ms), decode_ms)
 
 
 def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
@@ -1438,11 +1530,13 @@ def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
             "decode_step": device_window(decode4, decode_ms, 4)}
 
 
-def small_model_matches_cpu(device) -> None:
+def small_model_matches_cpu(
+        device, archs=((yi_6b, [16, 5, 11]), (zamba2_1p2b, None))) -> None:
     """Smoke width in float32: greedy tokens on the card (kernels) equal
-    those on the CPU (plain versions), for yi-6b (ragged prompts) and
+    those on the CPU (plain versions), for each (config module, prompt
+    lengths) of ``archs``: by default yi-6b (ragged prompts) and
     zamba2-1.2b (uniform prompts; the hybrid family takes no other)."""
-    for arch, lens in ((yi_6b, [16, 5, 11]), (zamba2_1p2b, None)):
+    for arch, lens in archs:
         cfg = arch.smoke_config(dtype=torch.float32)
         cpu = build_model(cfg, device="cpu")
         params = cpu.init(torch.Generator().manual_seed(0))
@@ -2301,6 +2395,478 @@ def campaign(device, card) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# llama4-maverick (MoE) serving at full width
+# ---------------------------------------------------------------------------
+
+
+def moe_config():
+    """llama4-maverick at full width, MOE_LAYERS of its 48 layers, the
+    params in bf16 (a float32 master copy would not fit)."""
+    return llama4_maverick.config(n_layers=MOE_LAYERS,
+                                  param_dtype=torch.bfloat16)
+
+
+def param_gb(cfg) -> float:
+    """The size of ``cfg``'s params in ``cfg.param_dtype``, GB (1e9 B)."""
+    itemsize = torch.empty((), dtype=cfg.param_dtype).element_size()
+    return cfg.param_count() * itemsize / 1e9
+
+
+def moe_memory_check(cfg) -> tuple:
+    """(free, total) GB on the card with nothing of the earlier phases
+    resident; fails unless the free memory holds the params and
+    MOE_HEADROOM_GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = (b / 1e9 for b in torch.cuda.mem_get_info())
+    need = param_gb(cfg) + MOE_HEADROOM_GB
+    print(f"moe: {free:.2f} of {total:.2f} GB free on the card; the "
+          f"{cfg.n_layers}-layer model needs {param_gb(cfg):.2f} GB of "
+          f"params + {MOE_HEADROOM_GB} GB")
+    check(free >= need, f"moe: {free:.2f} GB free on the card, the "
+                        f"{cfg.n_layers}-layer model needs {need:.2f} GB")
+    return free, total
+
+
+@contextmanager
+def recording_attention(store: list):
+    """Append each attention sublayer call's (x, params, rope, cache) to
+    ``store``, a decode call's K/V cloned before it appends its rows."""
+    saved = A.attention_sublayer
+
+    def record(x, p, cfg, rope, cache=None):
+        snap = None if cache is None else dict(
+            cache, k=cache["k"].clone(), v=cache["v"].clone())
+        store.append((x, p, rope, snap))
+        return saved(x, p, cfg, rope, cache=cache)
+    A.attention_sublayer = record
+    try:
+        yield
+    finally:
+        A.attention_sublayer = saved
+
+
+@contextmanager
+def recording_routes(store: list):
+    """Append each MoE block call's top-1 expert of every token to
+    ``store``."""
+    saved = BL.moe_mlp
+
+    def record(x, p, cfg):
+        logits = x.reshape(-1, x.shape[-1]) @ p["router"].to(x.dtype)
+        store.append(logits.argmax(-1))
+        return saved(x, p, cfg)
+    BL.moe_mlp = record
+    try:
+        yield
+    finally:
+        BL.moe_mlp = saved
+
+
+def one_key_late(q, k, v, causal=True, scale=None):
+    """The plain prefill attention with its causal edge one key late."""
+    return plain_masked(q, k, v, causal_seen(q, k, edge=1))[0]
+
+
+def one_row_short(q, kc, vc, lens):
+    """The plain decode attention over one cache row fewer."""
+    return DR.decode_attention_ref(q, kc, vc, lens - 1)
+
+
+def attention_replay(rec, cfg, routes=None):
+    """One recorded attention call again, on a copy of its cache: through
+    the kernel wrappers (``routes`` None) or the (prefill, decode)
+    ``routes``."""
+    x, p, rope, cache = rec
+    if cache is not None:
+        cache = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+    if routes is None:
+        return A.attention_sublayer(x, p, cfg, rope, cache=cache)[0]
+    with plain_attention(*routes):
+        return A.attention_sublayer(x, p, cfg, rope, cache=cache)[0]
+
+
+def moe_attention_layers(records, cfg, fault_layer=None) -> list:
+    """Each layer's largest relative L2 error over its recorded attention
+    calls (calls come a layer at a time, in order), the kernels against
+    the plain versions; the plain versions carry a planted fault (one key
+    late in a prefill, one row short in a decode step) in the calls of
+    ``fault_layer``."""
+    L = cfg.n_layers
+    plain = (plain_train, DR.decode_attention_ref)
+    worst = [0.0] * L
+    for i, rec in enumerate(records):
+        layer = i % L
+        ref = attention_replay(rec, cfg, (one_key_late, one_row_short)
+                               if layer == fault_layer else plain)
+        worst[layer] = max(worst[layer],
+                           rel_l2(attention_replay(rec, cfg), ref))
+    return worst
+
+
+def step_launches(L: int, prefills: int, decodes: int) -> dict:
+    """The exact launches of ``prefills`` prefills (or admissions) and
+    ``decodes`` decode steps of an L-layer KV-cache model: one B1 a layer
+    and prefill, one B3 a layer and decode step, nothing else."""
+    want = {k: 0 for k in KERNELS + PLAIN}
+    want.update(flash_attention=L * prefills, decode_attention=L * decodes)
+    return want
+
+
+def moe(device, card):
+    """llama4-maverick (MoE) serving: the float32 llama4 and kimi-k2 smoke
+    models on the card against the CPU, then llama4-maverick at full width
+    (MOE_LAYERS of 48 layers, bf16 params): generate (uniform and ragged)
+    and the scheduler with exact launches; kernel path against plain path
+    (each layer's attention gated, the whole path printed); step times and
+    the profile. Returns (launches by path, the moe line, the engine), the
+    engine kept for the serving campaign phase."""
+    small_model_matches_cpu(device, ((llama4_maverick, [16, 5, 11]),
+                                     (kimi_k2_1t, [16, 5, 11])))
+    cfg = moe_config()
+    L, V = cfg.n_layers, cfg.vocab
+    free_gb, total_gb = moe_memory_check(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN, device=device)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"setup: llama4-maverick at full width, {L} of 48 layers "
+          f"({cfg.param_count() / 1e9:.3f} B params, {param_gb(cfg):.2f} "
+          f"GB in bf16) initialised in {init_s:.1f} s; set-up peak "
+          f"{setup_peak_gb:.2f} GB")
+
+    rng = np.random.RandomState(5)
+    prompts = rng.randint(1, V, size=(4, 512)).astype(np.int32)
+    requests = [(rng.randint(1, V, size=int(rng.randint(16, SCHED_PREFILL
+                                                         + 1))
+                             ).astype(np.int32), int(rng.randint(8, 33)))
+                for _ in range(SCHED_REQUESTS)]
+    tp = TPServeEngine(model, None, world=None, max_len=SERVE_MAX_LEN,
+                       local=engine, device=device)
+    sched = RequestScheduler(tp, n_slots=SCHED_SLOTS,
+                             prefill_len=SCHED_PREFILL)
+    for prompt, n in requests:
+        sched.submit(prompt, n)
+    paths = {"generate uniform": lambda: engine.generate(prompts, N_NEW),
+             "generate ragged": lambda: engine.generate(
+                 prompts, N_NEW, prompt_lens=PROMPT_LENS),
+             "scheduler": sched.run}
+    out, seconds, launches = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for path, run in paths.items():
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out[path] = run()
+        torch.cuda.synchronize()
+        seconds[path] = time.perf_counter() - t0
+        launches[f"llama4 {path}"] = n = read_counts()
+        steps = (SCHED_REQUESTS, sched.decode_steps) \
+            if path == "scheduler" else (1, N_NEW)
+        want = step_launches(L, *steps)
+        print(f"llama4 {path} launches: {n}")
+        check(n == want, f"llama4 {path}: launches {n}, want exactly {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    uniform, ragged = out["generate uniform"], out["generate ragged"]
+    for name, toks in (("uniform", uniform), ("ragged", ragged)):
+        check(toks.shape == (4, 512 + N_NEW)
+              and np.array_equal(toks[:, :512], prompts)
+              and ((toks[:, 512:] >= 0) & (toks[:, 512:] < V)).all(),
+              f"llama4 {name} tokens {toks.shape}")
+    for r, (prompt, n) in zip(sched.requests, requests):
+        check(r.state == "done" and len(r.tokens) == n
+              and all(0 <= t < V for t in r.tokens),
+              f"llama4 request {r.rid}: {r.state} with {len(r.tokens)}/{n} "
+              f"tokens")
+    n_sched_tokens = sum(n for _, n in requests)
+    print(f"llama4 scheduler: {len(requests)} requests, {n_sched_tokens} "
+          f"tokens, {sched.decode_steps} decode steps, {tp.sync_rounds} sync "
+          f"rounds")
+
+    # the kernel path against the plain path, teacher-forced
+    feed = [torch.as_tensor(rng.randint(1, V, size=(4, 1)), device=device)
+            for _ in range(4)]
+    records, routes_k, routes_p = [], [], []
+    with recording_attention(records), recording_routes(routes_k):
+        fast = teacher_forced(engine, prompts, feed)
+    with plain_attention(), recording_routes(routes_p):
+        slow = teacher_forced(engine, prompts, feed)
+    check(bool(torch.isfinite(fast).all()), "non-finite llama4 logits")
+    whole = rel_l2(fast, slow)
+    agree = (fast.argmax(-1) == slow.argmax(-1)).float().mean().item()
+    flips = sum(int((a != b).sum()) for a, b in zip(routes_k, routes_p)) \
+        / sum(a.numel() for a in routes_k)
+    per_layer = moe_attention_layers(records, cfg)
+    faulted = moe_attention_layers(records, cfg, fault_layer=L - 1)
+    del records
+    print(f"llama4 kernel vs plain (prefill + 4 decode steps): whole-path "
+          f"bf16 logits rel L2 {whole:.3g} (not gated), argmax agreement "
+          f"{agree:.3f}, tokens whose top-1 expert differs {flips:.4f}; "
+          f"each layer's attention sublayer rel L2 "
+          f"{[f'{r:.3g}' for r in per_layer]} (limit {MOE_ATTN_REL_L2})")
+    print(f"  planted fault in layer {L - 1}'s plain attention (prefill one "
+          f"key late, decode one row short): "
+          f"{[f'{r:.3g}' for r in faulted]}, rejected "
+          f"{faulted[L - 1] > MOE_ATTN_REL_L2}")
+    check(max(per_layer) <= MOE_ATTN_REL_L2,
+          "llama4: an attention sublayer's kernel path disagrees with its "
+          "plain path")
+    check(faulted[L - 1] > MOE_ATTN_REL_L2,
+          "llama4: the attention limit passes a one-layer planted fault")
+
+    # step times at the uniform generate's shapes
+    prefill_runs, decode_ms, profile = timed_steps(engine, prompts)
+    step = profile["decode_step"]
+    b3 = step and step["b3_kernels_per_step"]
+    check(b3 == L, f"llama4 decode step: {b3} B3 device kernels, not one "
+                   f"for each of {L} calls")
+    line = {"moe": {
+        "model": "llama4-maverick-400b-a17b at full width, 2 of 48 layers "
+                 "(d=5120, 40 heads, 8 KV heads, 128 experts of d_ff 8192, "
+                 "top-1, vocab 202048), random bf16 params",
+        "card": card, "params_b": cfg.param_count() / 1e9,
+        "params_gb": param_gb(cfg), "init_s": init_s,
+        "free_gb_before": free_gb, "total_gb": total_gb,
+        "prefill_ms": min(prefill_runs), "prefill_shape": "B=4 S=512",
+        "decode_ms_per_step": decode_ms, "decode_batch": 4,
+        "generate_uniform_s": seconds["generate uniform"],
+        "generate_ragged_s": seconds["generate ragged"],
+        "generate_tokens_per_s": 4 * N_NEW / seconds["generate uniform"],
+        "decode_tokens_per_s": 4 / (decode_ms / 1e3),
+        "scheduler_s": seconds["scheduler"],
+        "scheduler_tokens_per_s": n_sched_tokens / seconds["scheduler"],
+        "scheduler_decode_steps": sched.decode_steps,
+        "peak_memory_gb": peak_gb, "setup_peak_memory_gb": setup_peak_gb,
+        "whole_path_logits_rel_l2": whole, "argmax_agreement": agree,
+        "top1_expert_differs_share": flips,
+        "attention_layer_rel_l2": per_layer,
+        "planted_fault_layer_rel_l2": faulted,
+        "launches": launches, "profile": profile}}
+    return launches, line, engine
+
+
+# ---------------------------------------------------------------------------
+# the serving campaign: tensor-parallel serving over the fabric
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def serving_steps():
+    """Count every ``TPServeEngine`` admission and decode step inside, by
+    wrapping the class's ``admit`` and ``decode_batch``."""
+    rec = {"admit": 0, "decode": 0}
+    admit, decode = TPServeEngine.admit, TPServeEngine.decode_batch
+
+    def t_admit(self, slot, prompt):
+        rec["admit"] += 1
+        return admit(self, slot, prompt)
+
+    def t_decode(self, feed):
+        rec["decode"] += 1
+        return decode(self, feed)
+
+    TPServeEngine.admit, TPServeEngine.decode_batch = t_admit, t_decode
+    try:
+        yield rec
+    finally:
+        TPServeEngine.admit, TPServeEngine.decode_batch = admit, decode
+
+
+def serving_cell(device, scenario: str):
+    """One ``serving`` cell through the port's ``run_scenario`` on
+    ``device``: (result, wall s, launches, the admissions and decode steps
+    they must follow from)."""
+    with serving_steps() as steps:
+        zero_counts()
+        t0 = time.perf_counter()
+        r = run_scenario(SCENARIOS[scenario], workload="serving",
+                         device=device)
+        sync(device)
+        wall = time.perf_counter() - t0
+        n = read_counts()
+    return r, wall, n, steps
+
+
+def serving_smoke(device) -> list:
+    """(a) Each SERVING_CELLS cell on the card and on the CPU: both ``ok``,
+    the same fingerprint; the maskable cells completed with no token or
+    payload mismatch and at least the scenario's fallbacks
+    (``rail_kill_striped`` also resteers), the unmaskable one aborted with
+    a failed request and no token mismatch; exactly one B1 a layer and
+    admission and one B3 a layer and decode step on the card (the cell's
+    single-host reference run counted), no plain launch."""
+    L = llama4_maverick.smoke_config().n_layers
+    cells = []
+    for name in SERVING_CELLS:
+        card_r, card_s, n, steps = serving_cell(device, name)
+        cpu_r, cpu_s, _, _ = serving_cell("cpu", name)
+        same = card_r.fingerprint() == cpu_r.fingerprint()
+        want = step_launches(L, steps["admit"], steps["decode"])
+        sc = SCENARIOS[name]
+        print(f"serving {name}: card ok {card_r.ok} {card_r.violations}, "
+              f"cpu ok {cpu_r.ok}; fingerprints equal {same}; completed "
+              f"{card_r.completed}, aborted {card_r.aborted}, requests "
+              f"{card_r.requests_done}/{card_r.requests_total} done, "
+              f"{card_r.requests_failed} failed, rounds {card_r.rounds}, "
+              f"fallbacks {card_r.fallbacks}, resteered "
+              f"{card_r.resteered_chunks}, token mismatches "
+              f"{card_r.token_mismatches}, payload mismatches "
+              f"{card_r.payload_mismatches}; wall s card {card_s:.2f} cpu "
+              f"{cpu_s:.2f}; card steps {steps}, launches {n}")
+        check(card_r.ok and cpu_r.ok,
+              f"serving {name}: violations card {card_r.violations}, cpu "
+              f"{cpu_r.violations}")
+        check(same, f"serving {name}: the card's fingerprint differs from "
+                    f"the CPU's")
+        check(n == want, f"serving {name}: launches {n}, want exactly {want}")
+        check(card_r.token_mismatches == 0,
+              f"serving {name}: {card_r.token_mismatches} token mismatches")
+        if sc.expect_masked:
+            check(card_r.completed and card_r.payload_mismatches == 0
+                  and card_r.fallbacks >= sc.min_fallbacks,
+                  f"serving {name}: completed {card_r.completed}, payload "
+                  f"mismatches {card_r.payload_mismatches}, fallbacks "
+                  f"{card_r.fallbacks}")
+        else:
+            check(card_r.aborted and card_r.requests_failed >= 1,
+                  f"serving {name}: aborted {card_r.aborted}, "
+                  f"{card_r.requests_failed} requests failed")
+        if name == "rail_kill_striped":
+            check(card_r.resteered_chunks >= 1,
+                  f"serving {name}: no chunk resteered")
+        cells.append({
+            "scenario": name, "ok": card_r.ok, "fingerprint_equal_cpu": same,
+            "completed": card_r.completed, "aborted": card_r.aborted,
+            "requests": [card_r.requests_done, card_r.requests_total,
+                         card_r.requests_failed],
+            "rounds": card_r.rounds, "fallbacks": card_r.fallbacks,
+            "resteered_chunks": card_r.resteered_chunks,
+            "token_mismatches": card_r.token_mismatches,
+            "payload_mismatches": card_r.payload_mismatches,
+            "steps": dict(steps), "launches": n,
+            "wall_s": {"card": card_s, "cpu": cpu_s}})
+    return cells
+
+
+def tp_serving_run(model, engine, requests, world_kw=None, kill=None):
+    """``RequestScheduler`` over ``TPServeEngine(world=...)`` sharing
+    ``engine``: the perf suite's ``serving_tp`` loop. ``requests`` are
+    (prompt, n_tokens); ``world_kw`` None serves with no world (the
+    reference run), else over ``build_world(**world_kw)``; ``kill`` names
+    a NIC taken down half a measured first step into decode. Returns the
+    tokens of each request and the readings."""
+    cluster = libs = world = None
+    if world_kw is not None:
+        cluster, libs, world = build_world(**world_kw)
+    tp = TPServeEngine(model, None, world=world, max_len=engine.max_len,
+                       timeout=10.0, local=engine, device=engine.device)
+    sched = RequestScheduler(tp, n_slots=len(requests),
+                             prefill_len=SCHED_PREFILL)
+    for prompt, n in requests:
+        sched.submit(prompt, n)
+    with serving_steps() as steps:
+        zero_counts()
+        t0, v0 = time.perf_counter(), cluster and cluster.sim.now
+        ticks = 0
+        while sched.pending:
+            sched.step()
+            ticks += 1
+            if ticks == 1 and kill is not None:
+                per_step = cluster.sim.now - v0
+                for lib in libs:
+                    lib.config.probe_interval = max(per_step / 2, 1e-5)
+                cluster.schedule_fault(cluster.sim.now + per_step / 2,
+                                       "nic_down", kill)
+        sync(engine.device)
+        wall = time.perf_counter() - t0
+        n = read_counts()
+    tokens = [list(r.tokens) for r in sched.requests]
+    check(all(r.state == "done" for r in sched.requests),
+          f"tp serving: requests {[r.state for r in sched.requests]}")
+    reading = {"wall_s": wall, "steps": dict(steps), "launches": n,
+               "decode_steps": sched.decode_steps,
+               "tokens": sum(len(t) for t in tokens),
+               "reconstruction_mismatches": tp.reconstruction_mismatches}
+    if world is not None:
+        elapsed = cluster.sim.now - v0
+        reading.update(
+            virtual_ms=elapsed * 1e3,
+            tokens_per_virtual_s=reading["tokens"] / elapsed,
+            fallbacks=sum(lib.stats.fallbacks for lib in libs),
+            resteered=world.scheduler.resteered)
+    return tokens, reading
+
+
+def serving_full_width(device, model, engine) -> dict:
+    """(b) The moe phase's llama4-maverick engine over a 2-rank, 2-channel
+    world: the scheduler with TP_FULL_REQUESTS requests on as many slots,
+    healthy and with TP_FULL_NIC killed mid-decode, against a world=None
+    run on the card: tokens equal bit for bit, no reconstruction mismatch,
+    at least one fallback under the fault, exact launches."""
+    L, V = model.cfg.n_layers, model.cfg.vocab
+    rng = np.random.RandomState(6)
+    requests = [(rng.randint(1, V, size=int(rng.randint(16, SCHED_PREFILL
+                                                         + 1))
+                             ).astype(np.int32), TP_FULL_TOKENS)
+                for _ in range(TP_FULL_REQUESTS)]
+    ref, local = tp_serving_run(model, engine, requests)
+    runs = {"local": local}
+    for name, kill in (("healthy", None), ("nic killed", TP_FULL_NIC)):
+        tokens, runs[name] = tp_serving_run(model, engine, requests,
+                                            TP_FULL_WORLD, kill)
+        r = runs[name]
+        r["tokens_equal_local"] = tokens == ref
+        print(f"tp serving at full width, {name}: tokens equal to the "
+              f"world=None run {tokens == ref}, {r['tokens']} tokens in "
+              f"{r['virtual_ms']:.4f} virtual ms "
+              f"({r['tokens_per_virtual_s']:.1f} tokens per virtual s), "
+              f"fallbacks {r['fallbacks']}, resteered {r['resteered']}, "
+              f"reconstruction mismatches {r['reconstruction_mismatches']}, "
+              f"wall {r['wall_s']:.2f} s; launches {r['launches']}")
+        check(tokens == ref, f"tp serving at full width, {name}: tokens "
+                             f"differ from the world=None run")
+        check(r["reconstruction_mismatches"] == 0,
+              f"tp serving at full width, {name}: "
+              f"{r['reconstruction_mismatches']} reconstruction mismatches")
+    check(runs["nic killed"]["fallbacks"] >= 1,
+          "tp serving at full width: no fallback under the NIC kill")
+    for name, r in runs.items():
+        want = step_launches(L, r["steps"]["admit"], r["steps"]["decode"])
+        check(r["launches"] == want and r["steps"]["admit"] == len(requests),
+              f"tp serving at full width, {name}: launches "
+              f"{r['launches']}, want exactly {want}")
+    return {"model": "the moe phase's llama4-maverick engine",
+            "world": dict(TP_FULL_WORLD), "kill": TP_FULL_NIC,
+            "requests": [[len(p), n] for p, n in requests],
+            "runs": runs,
+            "fault_throughput_ratio":
+                runs["nic killed"]["tokens_per_virtual_s"]
+                / runs["healthy"]["tokens_per_virtual_s"]}
+
+
+def serving_campaign(device, card, model, engine) -> tuple:
+    """The serving campaign phase: (a) the smoke cells on the card against
+    the CPU, (b) the full-width TP run over the fabric. Returns (launches
+    of the card runs, the serving_campaign line)."""
+    t0 = time.perf_counter()
+    cells = serving_smoke(device)
+    full = serving_full_width(device, model, engine)
+    total = {k: sum(c["launches"][k] for c in cells)
+             + sum(r["launches"][k] for r in full["runs"].values())
+             for k in KERNELS + PLAIN}
+    phase_s = time.perf_counter() - t0
+    print(f"serving campaign phase: {phase_s:.1f} s on {card}")
+    return total, {"serving_campaign": {
+        "card": card, "smoke_cells": cells, "full_width": full,
+        "phase_wall_s": phase_s}}
+
+
+# ---------------------------------------------------------------------------
 # zamba2-1.2b serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2542,27 +3108,12 @@ def zamba2(device, card):
     with torch.no_grad():
         bf16 = zamba2_bf16_layers(engine, prompts)
 
-    torch.cuda.synchronize()
-    prefill_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        logits, cache = engine._prefill(prompts)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    steps = 16
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        logits, cache = engine._decode(cache, tok)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
+    prefill_runs, decode_ms, profile = timed_steps(engine, prompts)
     return {"generate": n_gen}, {"zamba2": {
         "model": "zamba2-1.2b (38 Mamba2 blocks + 1 shared attention block "
                  "run 6 times, d=2048, random bf16 weights)",
         "card": card,
-        "prefill_ms": min(prefill_ms), "prefill_shape": "B=4 S=512",
+        "prefill_ms": min(prefill_runs), "prefill_shape": "B=4 S=512",
         "decode_ms_per_step": decode_ms, "decode_batch": 4,
         "generate_s": t_gen, "generate_tokens_per_s": 4 * N_NEW / t_gen,
         "decode_tokens_per_s": 4 / (decode_ms / 1e3),
@@ -3048,27 +3599,12 @@ def rwkv6(device, card):
     with torch.no_grad():
         bf16 = rwkv6_bf16_layers(engine, prompts)
 
-    torch.cuda.synchronize()
-    prefill_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        logits, cache = engine._prefill(prompts)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    steps = 16
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        logits, cache = engine._decode(cache, tok)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    profile = profile_steps(engine, prompts, min(prefill_ms), decode_ms)
+    prefill_runs, decode_ms, profile = timed_steps(engine, prompts)
     return {"generate": n_gen}, {"rwkv6": {
         "model": "rwkv6-3b (32 blocks, d=2560, 40 heads of 64, d_ff=8960, "
                  "vocab 65536, random bf16 weights)",
         "card": card,
-        "prefill_ms": min(prefill_ms), "prefill_ms_runs": prefill_ms,
+        "prefill_ms": min(prefill_runs), "prefill_ms_runs": prefill_runs,
         "prefill_shape": "B=4 S=512",
         "decode_ms_per_step": decode_ms, "decode_batch": 4,
         "generate_s": t_gen, "generate_tokens_per_s": 4 * N_NEW / t_gen,
@@ -3222,6 +3758,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches["campaign (card runs)"], campaign_line = campaign(device, card)
     torch.cuda.empty_cache()
+    moe_launches, moe_line, moe_engine = moe(device, card)
+    launches.update(moe_launches)
+    launches["serving campaign (card runs)"], serving_campaign_line = \
+        serving_campaign(device, card, moe_engine.model, moe_engine)
+    del moe_engine
+    gc.collect()
+    torch.cuda.empty_cache()
     z_launches, zamba = zamba2(device, card)
     launches["zamba2 generate"] = z_launches["generate"]
     torch.cuda.empty_cache()
@@ -3248,6 +3791,8 @@ def main() -> None:
     print(json.dumps(rwkv))
     print(json.dumps(ddp_line))
     print(json.dumps(campaign_line))
+    print(json.dumps(moe_line))
+    print(json.dumps(serving_campaign_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

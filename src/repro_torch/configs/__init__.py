@@ -16,6 +16,8 @@ ARCH_MODULES = {
     "gpt2-124m": "gpt2_124m",
     "zamba2-1.2b": "zamba2_1p2b",
     "rwkv6-3b": "rwkv6_3b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
 
 

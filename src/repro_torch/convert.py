@@ -7,10 +7,12 @@ for the dense family, ``blocks/attn/{wk,wo,wq,wv}``, ``blocks/ln1``,
 ``blocks/ln2``, ``blocks/mlp/{w_down,w_gate,w_up}``, then ``embed``,
 ``final_norm`` and ``lm_head``; for the hybrid family ``embed``,
 ``final_norm``, ``groups/{ln,m/*}``, ``lm_head``, ``rem/{ln,m/*}`` and
-``shared_attn/{attn/*,ln,ln2,mlp/*}``; for the rwkv6 family
-``blocks/{ln1,ln2}``, ``blocks/tm/*``, ``embed``, ``final_norm`` and
-``lm_head``. :func:`repro_torch.models.lm.flatten` walks the port's params
-in the same order.
+``shared_attn/{attn/*,ln,ln2,mlp/*}``; for the moe family the dense
+family's with ``blocks/moe/{router,w_down,w_gate,w_up}`` (and
+``blocks/moe/shared/*`` with a shared expert) in place of the MLP; for
+the rwkv6 family ``blocks/{ln1,ln2}``, ``blocks/tm/*``, ``embed``,
+``final_norm`` and ``lm_head``. :func:`repro_torch.models.lm.flatten`
+walks the port's params in the same order.
 """
 
 from __future__ import annotations
@@ -45,6 +47,19 @@ def _block_shapes(cfg: ModelConfig, lead: tuple, attn_mlp: bool) -> dict:
             "m/w_out": (*lead, d_in, D), "ln": (*lead, D)}
 
 
+def _moe_shapes(cfg: ModelConfig, L: int) -> dict:
+    """Shapes of the moe family's feed-forward leaves, stacked over ``L``
+    layers."""
+    D, F, E, Fs = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.shared_expert_ff
+    shapes = {"moe/router": (L, D, E), "moe/w_down": (L, E, F, D),
+              "moe/w_gate": (L, E, D, F), "moe/w_up": (L, E, D, F)}
+    if Fs:
+        shapes.update({"moe/shared/w_down": (L, Fs, D),
+                       "moe/shared/w_gate": (L, D, Fs),
+                       "moe/shared/w_up": (L, D, Fs)})
+    return shapes
+
+
 def _rwkv6_shapes(cfg: ModelConfig, L: int) -> dict:
     """Shapes of the rwkv6 blocks' leaves, stacked over ``L`` layers."""
     D, F = cfg.d_model, cfg.d_ff
@@ -63,7 +78,7 @@ def _rwkv6_shapes(cfg: ModelConfig, L: int) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """'/'-joined path -> shape of every param leaf of ``cfg``'s family
-    (dense, hybrid or rwkv6)."""
+    (dense, moe, hybrid or rwkv6)."""
     D, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
     shapes = {"embed": (V, D), "final_norm": (D,)}
     if not cfg.tie_embeddings:
@@ -78,6 +93,11 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
                                      ln=(D,), ln2=(D,))
     elif cfg.family == "rwkv6":
         blocks["blocks"] = _rwkv6_shapes(cfg, L)
+    elif cfg.family == "moe":
+        attn = {k: v for k, v in _block_shapes(cfg, (L,), True).items()
+                if k.startswith("attn/")}
+        blocks["blocks"] = dict(attn, **_moe_shapes(cfg, L), ln1=(L, D),
+                                ln2=(L, D))
     else:
         blocks["blocks"] = dict(_block_shapes(cfg, (L,), True),
                                 ln1=(L, D), ln2=(L, D))

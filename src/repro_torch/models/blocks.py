@@ -1,5 +1,6 @@
-"""Layer blocks of the port: the gated MLP of the dense family, the Mamba2
-(SSD) block of the hybrid family and the RWKV6 time and channel mixes."""
+"""Layer blocks of the port: the gated MLP of the dense family, the routed
+experts of the moe family, the Mamba2 (SSD) block of the hybrid family and
+the RWKV6 time and channel mixes."""
 
 from __future__ import annotations
 
@@ -31,6 +32,100 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
     return {"w_gate": init_dense(gen, (*lead, d, f), in_axis=k, dtype=dtype),
             "w_up": init_dense(gen, (*lead, d, f), in_axis=k, dtype=dtype),
             "w_down": init_dense(gen, (*lead, f, d), in_axis=k, dtype=dtype)}
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest of each row, the lower index
+    first among equal values, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k routed experts with capacity dropping (no residual or norm).
+
+    x (B, S, D) -> (B, S, D). Every token of the batch is routed together:
+    router logits in x's dtype, softmax in float32, the top k gates
+    renormalized by their sum. Each expert takes C = max(int(G K cf / E),
+    1) of the G = B S tokens' G K choices, in token order (a stable sort
+    by expert, rank within the expert by ``searchsorted``); the rest go to
+    a drop slot whose row is never read and come back as 0. The expert
+    products run as ``torch.bmm`` over (E, C, D) buffers; the output is
+    the gate-weighted sum of a token's k expert rows, plus the shared
+    expert's MLP when ``shared_expert_ff`` > 0. The reference's order of
+    operations, so bf16 rounds where it rounds."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    G = B * S
+    xt = x.reshape(G, D)
+    logits = xt @ p["router"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, idx = _top_k(probs, K)                           # (G, K)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    C = max(int(G * K * cfg.capacity_factor / E), 1)
+    flat_e = idx.reshape(-1)                                # (G K,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    pos = torch.arange(G * K, device=x.device) \
+        - torch.searchsorted(sorted_e, sorted_e, right=False)
+    dest = torch.where(pos < C, sorted_e * C + pos, E * C)  # drop slot last
+    tok = order // K
+    # several dropped choices write the drop slot; its row is never read
+    buf = xt.new_zeros(E * C + 1, D).index_copy(0, dest, xt[tok])
+    ebuf = buf[:E * C].view(E, C, D)
+
+    h = act_fn(cfg.act)(torch.bmm(ebuf, p["w_gate"].to(x.dtype)))
+    h = h * torch.bmm(ebuf, p["w_up"].to(x.dtype))
+    eout = torch.bmm(h, p["w_down"].to(x.dtype))
+
+    flat_out = torch.cat([eout.reshape(E * C, D), eout.new_zeros(1, D)])
+    picked = flat_out[dest]                                 # sorted order
+    yk = picked.new_zeros(G * K, D).index_copy(0, order, picked)
+    y = torch.einsum("gkd,gk->gd", yk.view(G, K, D), gates.to(eout.dtype))
+    if cfg.shared_expert_ff:
+        y = y + mlp(x, p["shared"], cfg).reshape(G, D)
+    return y.reshape(B, S, D).to(x.dtype)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype,
+             layers: int) -> dict:
+    """MoE weights of ``layers`` blocks, stacked on a leading layer axis:
+    ``router`` (D, E), ``w_gate`` and ``w_up`` (E, D, F), ``w_down`` (E, F,
+    D), with the reference's fan-ins (D for the router, axis 1 of an
+    expert's leaf for the experts), and ``shared`` when
+    ``shared_expert_ff`` > 0. The expert leaves are drawn one expert at a
+    time into a tensor of ``dtype``, so the float32 scratch is one
+    expert's slice, not the whole leaf."""
+    d, f, E, L = cfg.d_model, cfg.d_ff, cfg.n_experts, layers
+
+    def experts(rows, cols):
+        w = torch.empty((L, E, rows, cols), dtype=dtype, device=gen.device)
+        for layer in range(L):
+            for e in range(E):
+                w[layer, e] = init_dense(gen, (rows, cols), dtype=dtype)
+        return w
+
+    p = {"router": init_dense(gen, (L, d, E), in_axis=1, dtype=dtype),
+         "w_gate": experts(d, f), "w_up": experts(d, f),
+         "w_down": experts(f, d)}
+    if cfg.shared_expert_ff:
+        p["shared"] = init_mlp(gen, d, cfg.shared_expert_ff, dtype, L)
+    return p
+
+
+def moe_aux_loss(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing loss of x (B, S, D) on one layer's
+    router: E times the sum over experts of (the share of tokens whose
+    top-1 is the expert) x (the mean router probability of the expert).
+    ``argmax`` takes the first maximum, as ``jnp.argmax`` does."""
+    E = cfg.n_experts
+    probs = torch.softmax((x @ p["router"].to(x.dtype)).float(), dim=-1)
+    top1 = probs.argmax(dim=-1)
+    frac_tokens = F.one_hot(top1, E).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    return E * (frac_tokens * frac_probs).sum()
 
 
 def mamba2_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,

@@ -1,6 +1,6 @@
-"""Decoder LM of the port: the dense family (:class:`LM`), the zamba2
-hybrid family (:class:`HybridLM`) and the rwkv6 family (:class:`RwkvLM`),
-for training and serving.
+"""Decoder LM of the port: the dense family (:class:`LM`), the moe family
+(:class:`MoeLM`), the zamba2 hybrid family (:class:`HybridLM`) and the
+rwkv6 family (:class:`RwkvLM`), for training and serving.
 
 Parameters are a nested dict of tensors with the reference's keys, the
 blocks stacked on a leading layer axis; the layer loop is plain Python over
@@ -27,9 +27,9 @@ from .common import ModelConfig, init_dense, rms_norm, rope_cos_sin
 # them; the others (RMSNorm scales, Mamba2's a_log, RWKV6's w0, u and ln_x)
 # stay float32
 CAST_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                "embed", "lm_head", "w_in", "w_out", "w_conv", "dt_bias",
-                "d_skip", "wr", "wg", "ww", "w_k", "w_v", "w_r", "mu_r",
-                "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr")
+                "router", "embed", "lm_head", "w_in", "w_out", "w_conv",
+                "dt_bias", "d_skip", "wr", "wg", "ww", "w_k", "w_v", "w_r",
+                "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr")
 
 
 def flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -129,8 +129,14 @@ class LM:
             params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
         params["blocks"] = {"attn": A.init_attention(gen, cfg, dt, L),
                             "ln1": ones(L, D), "ln2": ones(L, D),
-                            "mlp": BL.init_mlp(gen, D, cfg.d_ff, dt, L)}
+                            **self._init_ffn(gen, dt)}
         return params
+
+    def _init_ffn(self, gen: torch.Generator, dtype) -> Dict[str, Any]:
+        """The blocks' feed-forward weights, stacked over the layers."""
+        cfg = self.cfg
+        return {"mlp": BL.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   cfg.n_layers)}
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg
@@ -144,8 +150,11 @@ class LM:
         h, kv = A.attention_sublayer(rms_norm(x, blk["ln1"], cfg.norm_eps),
                                      blk["attn"], cfg, rope, cache=cache)
         x = x + h
-        x = x + BL.mlp(rms_norm(x, blk["ln2"], cfg.norm_eps), blk["mlp"], cfg)
-        return x, kv
+        return x + self._ffn(rms_norm(x, blk["ln2"], cfg.norm_eps), blk), kv
+
+    def _ffn(self, y, blk):
+        """The block's feed-forward sublayer on its normed input."""
+        return BL.mlp(y, blk["mlp"], self.cfg)
 
     def _train_block(self, x, blk, rope):
         return self._dense_block(x, blk, rope)[0]
@@ -257,6 +266,33 @@ class LM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": ln + 1}
         return self._logits(params, x), new_cache
+
+
+class MoeLM(LM):
+    """MoE decoder LM: the dense family's attention, prefill and decode
+    (scalar and ``(B,)`` cache lengths, the clamped writes past the cache
+    end), with routed experts (:func:`~repro_torch.models.blocks.moe_mlp`)
+    as each block's feed-forward sublayer. Every token of a call is routed
+    together, so a row's experts depend on the other rows of its batch
+    (expert capacity)."""
+
+    family = "moe"
+
+    def _init_ffn(self, gen: torch.Generator, dtype) -> Dict[str, Any]:
+        return {"moe": BL.init_moe(gen, self.cfg, dtype, self.cfg.n_layers)}
+
+    def _ffn(self, y, blk):
+        return BL.moe_mlp(y, blk["moe"], self.cfg)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """:meth:`LM.loss` plus 0.01 times the load-balancing loss
+        (:func:`~repro_torch.models.blocks.moe_aux_loss`) of the embedded
+        inputs on layer 0's router, as in the reference."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = self._embed(params, tokens[:, :-1])
+        first = _layer(params["blocks"], 0)["moe"]
+        return super().loss(params, batch) \
+            + 0.01 * BL.moe_aux_loss(x, first, self.cfg)
 
 
 class HybridLM(LM):
@@ -584,9 +620,10 @@ class RwkvLM(LM):
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
-    """The port's LM class for ``cfg.family`` (dense, hybrid or rwkv6)."""
-    classes = {cls.family: cls for cls in (LM, HybridLM, RwkvLM)}
+    """The port's LM class for ``cfg.family`` (dense, moe, hybrid or
+    rwkv6)."""
+    classes = {cls.family: cls for cls in (LM, MoeLM, HybridLM, RwkvLM)}
     if cfg.family not in classes:
-        raise ValueError(f"the port serves the dense and hybrid families "
-                         f"and rwkv6, not {cfg.family!r}")
+        raise ValueError(f"the port serves the dense, moe and hybrid "
+                         f"families and rwkv6, not {cfg.family!r}")
     return classes[cfg.family](cfg, device=device)

@@ -31,10 +31,12 @@ Workloads, in increasing weight:
 * ``ddp_bucketed`` — the same trainer with ``bucket_bytes`` forced small
   enough that every step issues >= 4 concurrent gradient-bucket works
   (the overlapped-DDP smoke; a run that never overlaps is a violation).
-* ``serving`` — continuous-batching tensor-parallel inference on the
-  fabric. Not in this port yet: it serves an MoE model through a
-  ``TPServeEngine`` over a ``JcclWorld``, and the port has neither, so
-  the workload raises ``NotImplementedError``.
+* ``serving`` — continuous-batching tensor-parallel inference
+  (``repro_torch.serving.tp`` + ``repro_torch.serving.scheduler``) on the
+  fabric: per-step logits/activation all-gathers and MoE all-to-alls under
+  the fault timeline, with request-level invariants (no dropped requests,
+  no duplicated/truncated/corrupted tokens — byte-exact against the
+  single-host reference run).
 * ``mixed`` — all three latency classes live at once (DESIGN.md §10):
   every round issues bulk gradient-bucket allreduces, then a small
   latency-critical serving-style gather that must overtake them at the
@@ -53,10 +55,11 @@ run.
 This is the port's own copy of the reference's campaign engine, with its
 imports pointed at the port. The fabric stays numpy on the host, so the
 fabric-only workloads never touch a device and their fingerprints equal
-the reference's. The DDP workloads take ``device`` (``"cuda"`` by
-default) and run the smoke trainer's forward and backward there; the
-fingerprint reads the virtual clock only, so a card run and a CPU run of
-one cell give the same fingerprint.
+the reference's. The DDP and serving workloads take ``device``
+(``"cuda"`` by default) and run there the smoke trainer's forward and
+backward, or the smoke MoE model's prefill and decode; the fingerprint
+reads the virtual clock only, so a card run and a CPU run of one cell give
+the same fingerprint.
 """
 
 from __future__ import annotations
@@ -814,15 +817,166 @@ def run_ddp(scenario: Scenario, seed: int = 0, steps: int = 6,
 # ---------------------------------------------------------------------------
 
 
-def run_serving(scenario: Scenario, seed: int = 0, **kw) -> RunResult:
-    """Fault-tolerant TP serving under the scenario's fault timeline: not
-    in this port yet, so it raises ``NotImplementedError``. The workload
-    serves the llama4-maverick smoke config, an MoE model, through a
-    ``TPServeEngine`` over a ``JcclWorld``; the port has neither MoE
-    (ROADMAP A12) nor ``TPServeEngine`` over a world (A14)."""
-    raise NotImplementedError(
-        "the serving workload needs MoE (ROADMAP A12) and TPServeEngine "
-        "over a JcclWorld (A14), which the port does not have yet")
+# Build-once serving fixture (model, params, shared engine, prompts,
+# single-host reference generations): every cell shares one ServeEngine
+# (its params on the device) and one reference run per parameter set. The
+# key holds the device: one device's reference run never serves another's.
+_SERVING_FIXTURE: Dict[Tuple, Tuple] = {}
+
+
+def _serving_fixture(seed: int, n_requests: int, n_tokens: int,
+                     n_slots: int, prefill_len: int, max_len: int,
+                     device="cuda"):
+    """Smoke MoE serving fixture: the llama4-maverick smoke config, a
+    ragged prompt set, and the single-host reference run — the SAME
+    scheduler/engine classes with ``world=None``, so the reference
+    executes the identical admission/decode schedule and the comparison
+    is byte-level, not approximate. The params are drawn on the CPU from
+    ``torch.Generator().manual_seed(seed)`` and moved to ``device``, so a
+    seed gives the same params on the card and the CPU."""
+    import torch
+
+    from .. import resolve_device
+    from ..configs import llama4_maverick
+    from ..models import build_model
+    from ..serving import RequestScheduler, ServeEngine, TPServeEngine
+
+    device = resolve_device(device)
+    key = (seed, n_requests, n_tokens, n_slots, prefill_len, max_len,
+           str(device))
+    hit = _SERVING_FIXTURE.get(key)
+    if hit is not None:
+        return hit
+    cfg = llama4_maverick.smoke_config()
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    model = build_model(cfg, device=device)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(1, cfg.vocab,
+                           size=int(rng.randint(3, prefill_len + 1)))
+               .astype(np.int32) for _ in range(n_requests)]
+    local = ServeEngine(model, params, max_len=max_len, device=device)
+    ref_engine = TPServeEngine(model, params, world=None, max_len=max_len,
+                               local=local, device=device)
+    sched = RequestScheduler(ref_engine, n_slots=n_slots,
+                             prefill_len=prefill_len)
+    for p in prompts:
+        sched.submit(p, n_tokens)
+    sched.run()
+    ref = [list(r.tokens) for r in sched.requests]
+    fx = (model, params, local, prompts, ref)
+    _SERVING_FIXTURE[key] = fx
+    return fx
+
+
+def run_serving(scenario: Scenario, seed: int = 0, n_requests: int = 4,
+                n_tokens: int = 6, n_slots: int = 2, prefill_len: int = 12,
+                max_len: int = 32, n_ranks: int = 2, fast: bool = True,
+                channels: int = 1, max_chunk_bytes: int = 1 << 12,
+                max_steps: int = 4000, device="cuda") -> RunResult:
+    """Fault-tolerant TP serving under the scenario's fault timeline.
+
+    A continuous-batching ``RequestScheduler`` drives a sharded
+    ``TPServeEngine`` over a JcclWorld while the scenario's faults fire;
+    the model runs on ``device``.
+    Like ``run_ddp``, the timeline is rebased after the first scheduler
+    tick (anchor scaled onto the measured per-step time, authored
+    outage durations preserved — ``rebase_fault_times``) so the first
+    fault lands mid-decode, with in-flight per-layer gathers. Filler
+    request waves (the same prompts resubmitted) keep decode traffic
+    flowing across the fault window, so multi-action scenarios (flap
+    trains, the unmaskable second rail kill) hit live collectives.
+
+    Request-level contract, checked by the invariants: a maskable fault
+    drops no requests and corrupts no tokens — the first wave's tokens
+    must be byte-identical to the single-host reference (sampling runs
+    on fabric-reconstructed logits, so corruption IS observable as a
+    wrong token). Filler waves must complete but are not token-compared:
+    MoE expert-capacity contention couples rows within a batch, so only
+    the wave that replays the reference's exact schedule is
+    byte-comparable.
+    """
+    from ..collectives import CollectiveError, build_world
+    from ..serving import RequestScheduler, TPServeEngine
+
+    model, params, local, prompts, ref = _serving_fixture(
+        seed, n_requests, n_tokens, n_slots, prefill_len, max_len, device)
+    result = RunResult(scenario=scenario.name, workload="serving",
+                       seed=seed, min_concurrency=2)
+    cluster, libs, world = build_world(
+        n_ranks=n_ranks, probe_interval=5e-4,
+        max_chunk_bytes=max_chunk_bytes, strict_order=False, fast=fast,
+        channels=channels)
+    _observe(cluster, libs, result)
+    engine = TPServeEngine(model, params, world=world, max_len=max_len,
+                           timeout=scenario.duration + 1.0, local=local,
+                           device=local.device)
+    sched = RequestScheduler(engine, n_slots=n_slots,
+                             prefill_len=prefill_len)
+    for p in prompts:
+        sched.submit(p, n_tokens)
+    t0 = cluster.sim.now
+    horizon = None
+    steps = 0
+    # expected remaining first-wave ticks: admission waves x tokens
+    est_steps = max(1, -(-n_requests // n_slots) * n_tokens)
+    try:
+        while steps < max_steps:
+            if (horizon is not None and cluster.sim.now >= horizon
+                    and not sched.pending):
+                break
+            if not sched.pending:
+                for p in prompts:       # filler wave: keep faults biting
+                    sched.submit(p, n_tokens)
+            sched.step()
+            steps += 1
+            if steps == 1:
+                # Rebase the timeline onto the measured tick time (see
+                # run_ddp); cap the traffic horizon at anchor + 10ms —
+                # enough virtual time for the RC retry budget (~3.2ms),
+                # a staggered second fault (+4ms) and probe cycles, but
+                # not the authored 30ms recovery gaps (serving, like
+                # ddp, is exempt from the recovery invariant).
+                per_step = max(cluster.sim.now - t0, 1e-7)
+                scale = per_step * est_steps / scenario.duration
+                probe = max(per_step / 2, 1e-5)
+                for lib in libs:
+                    lib.config.probe_interval = probe
+                rebased = rebase_fault_times(scenario.actions, scale)
+                for at, kind, target, arg in rebased:
+                    cluster.schedule_fault(cluster.sim.now + at, kind,
+                                           target, arg)
+                anchor = min((at for at, *_ in rebased), default=0.0)
+                last = max((at for at, *_ in rebased), default=0.0)
+                horizon = (cluster.sim.now + min(last, anchor + 10e-3)
+                           + 3 * probe)
+    except CollectiveError:
+        sched.fail_outstanding()
+        result.aborted = True
+    # let scheduled fault actions + probes settle inside the window
+    cluster.sim.run(until=t0 + scenario.duration + 0.05)
+    result.requests_total = len(sched.requests)
+    result.requests_done = sum(r.state == "done" for r in sched.requests)
+    result.requests_failed = sum(r.state == "failed"
+                                 for r in sched.requests)
+    mismatches = 0
+    for r in sched.requests:
+        if r.state != "done":
+            continue
+        if len(r.tokens) != r.n_tokens:
+            mismatches += 1          # truncated or duplicated tokens
+        elif r.rid < len(ref) and list(r.tokens) != ref[r.rid]:
+            mismatches += 1          # diverged from single-host reference
+    result.token_mismatches = mismatches
+    result.payload_mismatches = engine.reconstruction_mismatches
+    result.rounds = sched.decode_steps
+    result.completed = (not result.aborted and result.requests_total > 0
+                        and result.requests_failed == 0
+                        and result.requests_done == result.requests_total)
+    result.event_count = cluster.sim._executed
+    result.sim_elapsed = cluster.sim.now - t0
+    _from_snapshot(world.stats_snapshot(), result)
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ import torch
 from .. import resolve_device
 from ..models.lm import LM, serving_params
 
+# the families whose cache is K/V rows, with a per-row append position: the
+# reference's dense/audio/moe, less audio, which the port does not have
+KV_CACHE_FAMILIES = ("dense", "moe")
+
 
 class ServeEngine:
     """Single-host batched generation (also the local compute of
@@ -60,7 +64,7 @@ class ServeEngine:
                              f"!= ({B},)")
         if (prompt_lens < 1).any() or (prompt_lens > S).any():
             raise ValueError("prompt_lens must be in [1, S]")
-        if self.model.cfg.family != "dense":
+        if self.model.cfg.family not in KV_CACHE_FAMILIES:
             raise ValueError(
                 f"ragged prompts are not supported for family "
                 f"{self.model.cfg.family!r} (recurrent state cannot mask "

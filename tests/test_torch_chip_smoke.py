@@ -610,3 +610,126 @@ def test_campaign_loss_limit_rejects_planted_faults():
                                      clean.loss_trace)
     assert set(faults) == set(CS.CAMPAIGN_LOSS_FAULTS)
     assert all(rel > CS.CAMPAIGN_LOSS_REL for rel in faults.values())
+
+
+def test_moe_cases_cover_llama4_and_the_serving_campaign():
+    """B1 and B3 hold the moe paths' shapes: llama4-maverick's prefill,
+    admission and decode at full width (5 query heads a K/V head, hd
+    128), and the serving campaign's smoke admission and decode (hd 16,
+    a length past the cache end); B1's and B3's timed shapes include
+    llama4-maverick's."""
+    cfg = CS.llama4_maverick.config()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    assert (H // KV, hd) == (5, 128)
+    flash = {c[1:] for c in CS.flash_cases()}
+    bf = torch.bfloat16
+    for B, S in ((4, 512), (1, CS.SCHED_PREFILL)):
+        assert (B, H, KV, S, S, hd, bf, True, "contiguous") in flash
+    smoke = CS.llama4_maverick.smoke_config()
+    sm = (smoke.n_heads, smoke.n_kv_heads, smoke.hd)
+    assert (1, *sm[:2], 12, 12, sm[2], bf, True, "contiguous") in flash
+    decode = {c[0]: c[1:] for c in CS.decode_cases()}
+    B, h, kv, S, d, dt, lens = decode["llama4 serving"]
+    assert (h, kv, S, d, dt) == (H, KV, CS.SERVE_MAX_LEN, hd, bf)
+    assert lens == [n + CS.N_NEW // 2 for n in CS.PROMPT_LENS]
+    B, h, kv, S, d, dt, lens = decode["moe smoke decode"]
+    assert (B, h, kv, S, d, dt) == (2, *sm[:2], 32, sm[2], bf)
+    assert max(lens) > S
+    assert ("llama4 prefill", 4, H, KV, 512, hd) in CS.FLASH_TIMED
+    assert any(t[0] == "llama4 serving" and t[1:6] ==
+               (4, H, KV, CS.SERVE_MAX_LEN, hd) for t in CS.DECODE_TIMED)
+
+
+def _serving_attention_shapes():
+    """(kind, B, H, KV, Sq or S, hd, dtype) of every attention call of the
+    serving campaign's rail_kill_striped cell on the CPU."""
+    seen = set()
+
+    def train(q, k, v, causal=True, scale=None):
+        seen.add(("B1", q.shape[0], q.shape[2], k.shape[2], q.shape[1],
+                  q.shape[3], q.dtype))
+        return CS.plain_train(q, k, v, causal=causal, scale=scale)
+
+    def decode(q, kc, vc, lens):
+        seen.add(("B3", q.shape[0], q.shape[1], kc.shape[2], kc.shape[1],
+                  q.shape[2], q.dtype))
+        return CS.DR.decode_attention_ref(q, kc, vc, lens)
+
+    with CS.plain_attention(train, decode):
+        r, _, _, _ = CS.serving_cell("cpu", "rail_kill_striped")
+    assert r.ok
+    return seen
+
+
+def test_serving_campaign_attention_shapes_are_kernel_cases():
+    flash = {c[1:7] + (c[7],) for c in CS.flash_cases()}
+    decode = {c[1:7] for c in CS.decode_cases()}
+    shapes = _serving_attention_shapes()
+    assert {s[0] for s in shapes} == {"B1", "B3"}
+    for kind, B, H, KV, S, hd, dt in shapes:
+        if kind == "B1":
+            assert (B, H, KV, S, S, hd, dt) in flash
+        else:
+            assert (B, H, KV, S, hd, dt) in decode
+
+
+def test_moe_memory_reckoning_is_the_params_in_bf16():
+    cfg = CS.moe_config()
+    assert (cfg.n_layers, cfg.param_dtype) == (2, torch.bfloat16)
+    assert cfg.param_count() == 34_408_391_680
+    assert round(CS.param_gb(cfg), 1) == 68.8
+    three = CS.llama4_maverick.config(n_layers=3, param_dtype=torch.bfloat16)
+    assert CS.param_gb(three) > 80
+
+
+def test_moe_attention_check_rejects_a_one_layer_fault():
+    """At smoke width on the CPU (where the wrappers are the plain
+    versions): each layer's attention on the recorded inputs of a prefill
+    and 4 decode steps reads 0; a planted fault of the plain attention in
+    one layer is rejected in that layer alone."""
+    cfg = CS.llama4_maverick.smoke_config(n_layers=3)
+    model = CS.build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = CS.ServeEngine(model, params,
+                            max_len=40, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = rng.randint(1, cfg.vocab, size=(2, 30)).astype(np.int32)
+    feed = [torch.as_tensor(rng.randint(1, cfg.vocab, size=(2, 1)))
+            for _ in range(4)]
+    records, routes = [], []
+    with CS.recording_attention(records), CS.recording_routes(routes):
+        logits = CS.teacher_forced(engine, prompts, feed)
+    assert len(records) == len(routes) == 5 * cfg.n_layers
+    assert torch.equal(logits, CS.teacher_forced(engine, prompts, feed))
+    assert CS.moe_attention_layers(records, cfg) == [0.0] * cfg.n_layers
+    faulted = CS.moe_attention_layers(records, cfg, fault_layer=1)
+    assert faulted[0] == faulted[2] == 0.0
+    assert faulted[1] > CS.MOE_ATTN_REL_L2
+    # the decode calls alone also see the fault
+    decode_only = [r for r in records if r[3] is not None]
+    assert CS.moe_attention_layers(decode_only, cfg, fault_layer=1)[1] \
+        > CS.MOE_ATTN_REL_L2
+
+
+def test_tp_serving_run_masks_a_nic_kill_at_smoke_width():
+    """The full-width TP run's loop, on the CPU at smoke width: over the
+    world, healthy and with the NIC killed mid-decode, the tokens equal
+    the world=None run's, with no reconstruction mismatch and fallbacks
+    under the kill."""
+    cfg = CS.llama4_maverick.smoke_config()
+    model = CS.build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(1))
+    engine = CS.ServeEngine(model, params,
+                            max_len=CS.SERVE_MAX_LEN, device="cpu")
+    rng = np.random.RandomState(2)
+    requests = [(rng.randint(1, cfg.vocab, size=int(rng.randint(16, 100))
+                             ).astype(np.int32), 8) for _ in range(4)]
+    ref, local = CS.tp_serving_run(model, engine, requests)
+    assert local["tokens"] == 32 and "virtual_ms" not in local
+    for kill in (None, CS.TP_FULL_NIC):
+        tokens, r = CS.tp_serving_run(model, engine, requests,
+                                      CS.TP_FULL_WORLD, kill)
+        assert tokens == ref
+        assert r["reconstruction_mismatches"] == 0
+        assert (r["fallbacks"] >= 1) == (kill is not None)
+        assert r["steps"] == {"admit": 4, "decode": 7}

@@ -1,7 +1,8 @@
-"""The port stands alone: importing it, serving (dense, hybrid and rwkv6),
-taking a train step and a data-parallel step over its own fabric on the
-CPU, and running a campaign cell (``repro_torch.scenarios``, with
-``repro_torch.policy`` imported) loads neither ``jax`` nor any module of
+"""The port stands alone: importing it, serving (dense, moe, hybrid and
+rwkv6, and moe over its own fabric), taking a train step and a
+data-parallel step over its own fabric on the CPU, and running campaign
+cells (``repro_torch.scenarios``, with ``repro_torch.policy`` imported; a
+``serving`` cell among them) loads neither ``jax`` nor any module of
 ``repro``; and it never moves to the CPU on its own."""
 
 import os
@@ -20,7 +21,8 @@ import sys
 import numpy as np
 import torch
 import repro_torch
-from repro_torch.configs import gpt2_124m, rwkv6_3b, yi_6b, zamba2_1p2b
+from repro_torch.configs import (gpt2_124m, llama4_maverick, rwkv6_3b,
+                                 yi_6b, zamba2_1p2b)
 from repro_torch.launch import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -58,6 +60,15 @@ reng = ServeEngine(rmodel, rmodel.init(torch.Generator().manual_seed(0)),
 out = reng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
 assert out.shape == (2, 7), out.shape
 from repro_torch.collectives import build_world
+mcfg = llama4_maverick.smoke_config(n_layers=1)
+mmodel = build_model(mcfg, device="cpu")
+meng = ServeEngine(mmodel, mmodel.init(torch.Generator().manual_seed(0)),
+                   max_len=16, device="cpu")
+mtp = TPServeEngine(mmodel, None, world=build_world(n_ranks=2)[2],
+                    max_len=16, local=meng, device="cpu")
+prompts = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+assert (mtp.generate(prompts, 3) == meng.generate(prompts, 3)).all()
+assert mtp.reconstruction_mismatches == 0
 from repro_torch.train import build_smoke_trainer
 import tempfile
 cluster, libs, world = build_world(n_ranks=2)
@@ -68,6 +79,8 @@ assert run.final_step == 1 and np.isfinite(run.timeline[0][2])
 import repro_torch.policy
 from repro_torch.scenarios import SCENARIOS, run_scenario
 cell = run_scenario(SCENARIOS["sender_nic_down"], "pingpong")
+assert cell.ok and cell.completed and cell.fallbacks >= 1, cell.violations
+cell = run_scenario(SCENARIOS["rail_kill_striped"], "serving", device="cpu")
 assert cell.ok and cell.completed and cell.fallbacks >= 1, cell.violations
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -104,4 +117,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
         ServeEngine(model, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TPServeEngine(model, params)
+    from repro_torch.scenarios import SCENARIOS, run_scenario
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_scenario(SCENARIOS["baseline_clean"], "serving")
     assert resolve_device("cpu") == torch.device("cpu")

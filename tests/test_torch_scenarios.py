@@ -89,11 +89,16 @@ def test_campaign_refuses_an_unknown_workload():
 
 
 def test_serving_workload_names_what_is_missing():
+    """The serving workload runs: the smoke MoE model over a 2-rank world
+    on the CPU serves every request of a clean cell, token for token as
+    its single-host run (``test_torch_campaign_serving.py`` holds the
+    cells to the reference's)."""
     assert "serving" in T.WORKLOADS
-    with pytest.raises(NotImplementedError, match="A12.*A14"):
-        T.WORKLOADS["serving"](T.SCENARIOS["sender_nic_down"])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.run_scenario(T.SCENARIOS["sender_nic_down"], workload="serving")
+    r = T.run_scenario(T.SCENARIOS["baseline_clean"], workload="serving",
+                       device="cpu")
+    assert r.ok and r.completed and not r.violations
+    assert r.requests_done == r.requests_total >= 4
+    assert r.token_mismatches == r.payload_mismatches == 0
 
 
 def test_campaign_report_equals_reference():

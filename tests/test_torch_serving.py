@@ -16,6 +16,7 @@ from repro.models import build_model as j_build  # noqa: E402
 from repro.serving import RequestScheduler as JScheduler  # noqa: E402
 from repro.serving import ServeEngine as JServe  # noqa: E402
 from repro.serving import TPServeEngine as JTP  # noqa: E402
+from repro_torch.collectives import build_world  # noqa: E402
 from repro_torch.configs import yi_6b as t_yi  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
@@ -147,9 +148,16 @@ def test_scheduler_state_machine(setup):
 
 
 def test_tp_needs_world_none_and_start_batch(setup):
-    _, _, tm, tp, _ = setup
-    with pytest.raises(NotImplementedError, match="fabric"):
-        TPServeEngine(tm, tp, world=object(), max_len=MAX_LEN, device="cpu")
+    """A world is taken (serving over the port's fabric gives the local
+    tokens), and continuous batching still needs ``start_batch``."""
+    _, _, tm, tp, prompts = setup
+    _, _, world = build_world(n_ranks=2, max_chunk_bytes=1 << 12)
+    tw = TPServeEngine(tm, tp, world=world, max_len=MAX_LEN, device="cpu")
+    np.testing.assert_array_equal(
+        tw.generate(prompts, 3),
+        TPServeEngine(tm, tp, max_len=MAX_LEN, device="cpu").generate(
+            prompts, 3))
+    assert tw.reconstruction_mismatches == 0
     tt = TPServeEngine(tm, tp, world=None, max_len=MAX_LEN, device="cpu")
     with pytest.raises(RuntimeError, match="start_batch"):
         tt.decode_batch(np.zeros(2, np.int32))
