@@ -67,7 +67,25 @@ and read just after, that each went through the kernels:
   launch a layer and decode step; then the full-width llama4-maverick
   engine over a 2-rank, 2-channel world, healthy and with host0's first
   NIC killed mid-decode, giving the tokens of its ``world=None`` run
-  with no reconstruction mismatch and a fallback under the kill.
+  with no reconstruction mismatch and a fallback under the kill;
+* the families phase: the float32 musicgen-medium, starcoder2-3b and
+  deepseek-67b smoke models (ragged prompts) and the llama-3.2-vision
+  smoke model (gates nonzero, a greedy loop over random image embeddings
+  through ``make_prefill_step`` and ``make_decode_step``; 3 train steps)
+  on the card against the CPU, then llama-3.2-vision at full width with
+  10 of its 100 layers and bf16 params (21.9 GB): a prefill step over
+  random images (4, 1600, 8192) of exactly 8 causal and 2 non-causal
+  flash-attention launches, decode steps of exactly 10 decode-attention
+  launches (the cross blocks' one query row over the 1600 image rows
+  among them) and no flash attention, ``generate`` with the reference's
+  zero images; each layer's attention sublayer, kernels against plain
+  versions, within 2e-2 (a planted fault dropping the last image key of
+  one cross block must exceed it), the whole path printed; then
+  musicgen-medium (48 layers) and starcoder2-3b (30 layers) whole through
+  ``generate`` (uniform and ragged; musicgen also ``RequestScheduler``
+  over ``TPServeEngine(world=None)``) with exactly L flash-attention
+  launches a prefill and L decode-attention launches a decode step, the
+  serving logits kernel path against plain path within 2e-2.
 
 It holds the kernel path against the plain path at full width (logits
 while serving, loss and gradients while training; for zamba2 and rwkv6
@@ -100,18 +118,23 @@ the train step, and prints:
   agreement, fallbacks, mismatches, launches and wall s, and the
   full-width TP run's tokens per virtual second, healthy and under the
   fault, with its wall s;
+* a ``{"families": ...}`` line: for llama-3.2-vision, musicgen-medium and
+  starcoder2-3b the prefill ms, decode ms per step, tokens/s, device-busy
+  ms and idle share, peak memory, launches and the kernel-vs-plain
+  readings (llama-3.2-vision: each layer's attention error, the planted
+  fault's, how far the images move the logits), and the phase's wall s;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
   inputs, and the card's least time for the same work (``bound_ms``);
-  flash attention's entry also lists all four of its main-path shapes
+  flash attention's entry also lists all five of its main-path shapes
   (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward,
-  llama4-maverick prefill), and
-  the backward kernels' entries the time of the whole backward call
-  (``bwd_ms``: delta, B2a and B2b), which compares with SDPA's; decode
-  attention's entry its four shapes (yi-6b serving, zamba2 decode, every
-  row in one chunk, llama4-maverick serving) and its time by the chunks a
-  row holds
+  llama4-maverick prefill, and the non-causal llama-3.2-vision cross
+  prefill), and the backward kernels' entries the time of the whole
+  backward call (``bwd_ms``: delta, B2a and B2b), which compares with
+  SDPA's; decode attention's entry its five shapes (yi-6b serving, zamba2
+  decode, every row in one chunk, llama4-maverick serving,
+  llama-3.2-vision cross decode) and its time by the chunks a row holds
   (``ms_by_chunks``);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
@@ -143,9 +166,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.collectives import build_world  # noqa: E402
-from repro_torch.configs import (gpt2_124m, kimi_k2_1t,  # noqa: E402
-                                 llama4_maverick, rwkv6_3b, yi_6b,
-                                 zamba2_1p2b)
+from repro_torch.configs import (deepseek_67b, gpt2_124m,  # noqa: E402
+                                 kimi_k2_1t, llama32_vision_90b,
+                                 llama4_maverick, musicgen_medium, rwkv6_3b,
+                                 starcoder2_3b, yi_6b, zamba2_1p2b)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
@@ -155,11 +179,14 @@ from repro_torch.kernels.rwkv6_scan import ops as RO  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as RR  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as SO  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as SR  # noqa: E402
-from repro_torch.launch import make_train_step, value_and_grad  # noqa: E402
+from repro_torch.launch import (make_decode_step,  # noqa: E402
+                                make_prefill_step, make_train_step,
+                                value_and_grad)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.lm import flatten, unflatten  # noqa: E402
+from repro_torch.models.lm import (flatten, serving_params,  # noqa: E402
+                                   unflatten, vlm_layout)
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.scenarios import SCENARIOS, run_scenario  # noqa: E402
 from repro_torch.scenarios import engine as SE  # noqa: E402
@@ -345,6 +372,23 @@ TP_FULL_WORLD = dict(n_ranks=2, channels=2, probe_interval=5e-4,
 TP_FULL_NIC = "host0/mlx5_0"
 
 
+# The families phase. (a) llama-3.2-vision at full width: VLM_LAYERS of
+# its 100 layers (2 groups of a cross block and 4 self blocks; the whole
+# model is 181 GB in bf16), bf16 params, 21.9 GB; the float32 draw of the
+# largest stacked leaf (the self blocks' w_gate, 7.5 GB) and the
+# activations need VLM_HEADROOM_GB more. Each cross block's gate is set to
+# VLM_GATE: the reference's zero gate would leave the image path no effect
+# (ROADMAP C11). Its kernel path against its plain path: each layer's
+# attention sublayer (self and cross) within MOE_ATTN_REL_L2, which a
+# planted fault dropping the last image key of one cross block must exceed
+# (dropping one of 1600 keys moves the output by ~1/sqrt(1600) = 0.025).
+# (b) musicgen-medium (48 layers) and starcoder2-3b (30 layers) whole.
+VLM_LAYERS = 10
+VLM_IMAGE_TOKENS = 1600      # llama32_vision_90b.config().n_image_tokens
+VLM_HEADROOM_GB = 12.0
+VLM_GATE = 0.5
+
+
 def die(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -455,7 +499,18 @@ def flash_cases():
              ("llama4 prefill", 4, 40, 8, 512, 512, 128, bf, True),
              ("llama4 admit", 1, 40, 8, SCHED_PREFILL, SCHED_PREFILL, 128,
               bf, True),
-             ("moe smoke admit", 1, 8, 2, 12, 12, 16, bf, True)]
+             ("moe smoke admit", 1, 8, 2, 12, 12, 16, bf, True),
+             # the families phase: llama-3.2-vision's self and cross
+             # prefill (512 queries over 1600 image keys, 12.5 key tiles:
+             # the last one partial) and its smoke model's cross blocks,
+             # musicgen-medium's MHA at hd 64, starcoder2-3b's 12 query
+             # heads a K/V head at hd 128
+             ("vlm self prefill", 4, 64, 8, 512, 512, 128, bf, True),
+             ("vlm cross prefill", 4, 64, 8, 512, VLM_IMAGE_TOKENS, 128, bf,
+              False),
+             ("vlm smoke cross", 2, 8, 2, 12, 16, 16, bf, False),
+             ("musicgen prefill", 4, 24, 24, 512, 512, 64, bf, True),
+             ("starcoder2-3b prefill", 4, 24, 2, 512, 512, 128, bf, True)]
     # the bf16 body's 128-row query blocks and 128-key tiles: lengths on
     # either side of one and two tiles, at both model head dims
     for hd in (64, 128):
@@ -510,7 +565,19 @@ def decode_cases():
             # campaign's smoke decode (hd 16, a free slot's length past S)
             ("llama4 serving", 4, 40, 8, SERVE_MAX_LEN, 128, bf,
              [n + N_NEW // 2 for n in PROMPT_LENS]),
-            ("moe smoke decode", 2, 8, 2, 32, 16, bf, [12, 45])]
+            ("moe smoke decode", 2, 8, 2, 32, 16, bf, [12, 45]),
+            # the families phase: llama-3.2-vision's cross decode (one
+            # query row over all 1600 image rows, 25 chunks) and its self
+            # decode, musicgen-medium's (G = 1, hd 64), starcoder2-3b's
+            # (G = 12 at hd 128: groups of 8 and 4)
+            ("vlm cross decode", 4, 64, 8, VLM_IMAGE_TOKENS, 128, bf,
+             [VLM_IMAGE_TOKENS] * 4),
+            ("vlm serving", 4, 64, 8, SERVE_MAX_LEN, 128, bf,
+             [n + N_NEW // 2 for n in PROMPT_LENS]),
+            ("musicgen serving", 4, 24, 24, SERVE_MAX_LEN, 64, bf,
+             [n + N_NEW // 2 for n in PROMPT_LENS]),
+            ("starcoder2-3b serving", 4, 24, 2, SERVE_MAX_LEN, 128, bf,
+             [n + N_NEW // 2 for n in PROMPT_LENS])]
 
 
 def rand_like_cases(gen, shapes, dtype, device):
@@ -1060,46 +1127,59 @@ FLASH_TIMED = (("yi-6b prefill", 4, 32, 4, 512, 128),
                ("zamba2 prefill", 4, 32, 32, 512, 64),
                ("gpt2 train forward", TRAIN_B, 12, 12, TRAIN_S, 64),
                ("llama4 prefill", 4, 40, 8, 512, 128))
+# and non-causal, (path, B, H, KV, Sq, Sk, hd): the vlm cross prefill, 512
+# queries over 1600 image keys
+FLASH_CROSS_TIMED = (("vlm cross prefill", 4, 64, 8, 512, VLM_IMAGE_TOKENS,
+                      128),)
 
 
 def time_flash(device, gen):
-    """B1, its plain version and SDPA timed at each of FLASH_TIMED, with
-    the card's bound; one dict a shape."""
+    """B1, its plain version and SDPA timed at each of FLASH_TIMED and
+    FLASH_CROSS_TIMED, with the card's bound; one dict a shape."""
     bf = torch.bfloat16
     out = []
-    for path, B, H, KV, S, hd in FLASH_TIMED:
-        sets = [rand_like_cases(gen, [(B, S, H, hd), (B, S, KV, hd),
-                                      (B, S, KV, hd)], bf, device)
+    shapes = [(path, B, H, KV, S, S, hd, True)
+              for path, B, H, KV, S, hd in FLASH_TIMED]
+    shapes += [(*shape, False) for shape in FLASH_CROSS_TIMED]
+    for path, B, H, KV, Sq, Sk, hd, causal in shapes:
+        sets = [rand_like_cases(gen, [(B, Sq, H, hd), (B, Sk, KV, hd),
+                                      (B, Sk, KV, hd)], bf, device)
                 for _ in range(4)]
-        ms = time_ms(lambda q, k, v: FO.flash_attention(q, k, v), sets)
-        plain = time_ms(lambda q, k, v: FR.flash_attention_ref(q, k, v),
-                        sets, iters=5)
+        ms = time_ms(lambda q, k, v: FO.flash_attention(q, k, v,
+                                                        causal=causal), sets)
+        plain = time_ms(lambda q, k, v: FR.flash_attention_ref(
+            q, k, v, causal=causal), sets, iters=5)
         lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True), sets)
-        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd) \
-            + 4 * B * H * S
-        ops = 4 * B * H * hd * S * (S + 1) / 2      # causal QK^T and PV
+            is_causal=causal, enable_gqa=True), sets)
+        nbytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) \
+            + 4 * B * H * Sq
+        # QK^T and PV over the (q, k) pairs the mask keeps (causal: Sq = Sk)
+        pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+        ops = 4 * B * H * hd * pairs
         b_ms, b_by = bound(nbytes, ops)
         out.append({"path": path, "ms": ms, "plain_ms": plain,
                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
                     "vs_library": ms / lib,
-                    "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
-                             f"causal"})
+                    "shape": f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                             f"bf16 {'causal' if causal else 'non-causal'}"})
     return out
 
 
 # B3's main-path shapes: (path, B, H, KV, S, hd, lens), all bf16: a decode
 # step of yi-6b's ragged generate (32 layers' caches), of zamba2's generate,
-# every row on the one-chunk path, and llama4-maverick's ragged generate (5
-# query heads a K/V head)
+# every row on the one-chunk path, llama4-maverick's ragged generate (5
+# query heads a K/V head) and llama-3.2-vision's cross decode (every row
+# over all 1600 image rows)
 DECODE_TIMED = (("yi-6b serving", 4, 32, 4, SERVE_MAX_LEN, 128,
                  [n + N_NEW // 2 for n in PROMPT_LENS]),
                 ("zamba2 decode", 4, 32, 32, SERVE_MAX_LEN, 64,
                  [512 + N_NEW // 2] * 4),
                 ("one chunk", 4, 32, 4, SERVE_MAX_LEN, 128, [1, 17, 63, 64]),
                 ("llama4 serving", 4, 40, 8, SERVE_MAX_LEN, 128,
-                 [n + N_NEW // 2 for n in PROMPT_LENS]))
+                 [n + N_NEW // 2 for n in PROMPT_LENS]),
+                ("vlm cross decode", 4, 64, 8, VLM_IMAGE_TOKENS, 128,
+                 [VLM_IMAGE_TOKENS] * 4))
 
 
 def decode_sets(gen, B, H, KV, S, hd, device, n: int = 32):
@@ -1155,8 +1235,8 @@ def time_kernels(device, errs, launches):
     bf = torch.bfloat16
     out = []
 
-    # B1 at its three main-path shapes; the entry's own numbers are the
-    # yi-6b prefill's, the first
+    # B1 at its main-path shapes; the entry's own numbers are the yi-6b
+    # prefill's, the first
     shapes = time_flash(device, gen)
     main = shapes[0]
     out.append({"name": "flash_attention", "route": "cuda",
@@ -1490,14 +1570,17 @@ def serve(device, card):
         "profile": profile}
 
 
-def timed_steps(engine, prompts):
+def timed_steps(engine, prompts, prefill=None):
     """(3 prefills' wall ms, the mean wall ms of 16 decode steps after
     one, their profile): each timed on the host clock and synchronised,
-    the profile by :func:`profile_steps` against the best prefill."""
+    the profile by :func:`profile_steps` against the best prefill.
+    ``prefill`` () -> (logits, cache) replaces the engine's prefill of
+    ``prompts`` (the vlm's prefill step over its image embeddings)."""
+    prefill = prefill or (lambda: engine._prefill(prompts))
     prefill_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
-        logits, cache = engine._prefill(prompts)
+        logits, cache = prefill()
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
     tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -1510,13 +1593,13 @@ def timed_steps(engine, prompts):
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     del logits, cache
     return prefill_ms, decode_ms, \
-        profile_steps(engine, prompts, min(prefill_ms), decode_ms)
+        profile_steps(engine, prefill, min(prefill_ms), decode_ms)
 
 
-def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
-    """Device time by kernel over one prefill and over 4 decode steps, from
-    torch.profiler (see :func:`device_window`)."""
-    logits, cache = engine._prefill(prompts)
+def profile_steps(engine, prefill, prefill_ms: float, decode_ms: float):
+    """Device time by kernel over one ``prefill()`` and over 4 decode
+    steps, from torch.profiler (see :func:`device_window`)."""
+    logits, cache = prefill()
     tok = logits[:, -1].argmax(-1, keepdim=True)
 
     def decode4():
@@ -1525,8 +1608,7 @@ def profile_steps(engine, prompts, prefill_ms: float, decode_ms: float):
             lg, cache = engine._decode(cache, tok)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    return {"prefill": device_window(lambda: engine._prefill(prompts),
-                                     prefill_ms),
+    return {"prefill": device_window(prefill, prefill_ms),
             "decode_step": device_window(decode4, decode_ms, 4)}
 
 
@@ -1557,13 +1639,21 @@ def small_model_matches_cpu(
               f"card launches {n}")
 
 
-def small_train_matches_cpu(device) -> None:
+def small_train_matches_cpu(device, cfg=None) -> None:
     """Smoke width in float32: 3 train steps on the card (kernels) against
-    3 on the CPU (plain versions), from the same params and batch."""
-    cfg = gpt2_124m.smoke_config(dtype=torch.float32)
+    3 on the CPU (plain versions), from the same params and batch; by
+    default gpt2-124m's smoke model. A vlm ``cfg`` trains with its gates at
+    VLM_GATE on seeded random image embeddings: B2a/B2b non-causal, 32
+    queries over its 16 image keys."""
+    cfg = cfg or gpt2_124m.smoke_config(dtype=torch.float32)
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
-    tokens = np.random.RandomState(2).randint(0, cfg.vocab, (2, 33))
+    rng = np.random.RandomState(2)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (2, 33))}
+    if cfg.family == "vlm":
+        params["cross_blocks"]["gate"].fill_(VLM_GATE)
+        batch["image_embeds"] = rng.randn(
+            2, cfg.n_image_tokens, cfg.d_model).astype(np.float32)
     opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
     out = {}
     for dev in ("cpu", device):
@@ -1575,7 +1665,7 @@ def small_train_matches_cpu(device) -> None:
         zero_counts()
         losses = []
         for _ in range(3):
-            p, state, metrics = step(p, state, {"tokens": tokens})
+            p, state, metrics = step(p, state, batch)
             losses.append(float(metrics["loss"]))
         out[str(model.device.type)] = (losses, p, read_counts())
     (l_cpu, p_cpu, _), (l_gpu, p_gpu, n_gpu) = out["cpu"], out["cuda"]
@@ -1583,15 +1673,16 @@ def small_train_matches_cpu(device) -> None:
     check(n_gpu["flash_attention"] == 3 * 2 * L
           and n_gpu["flash_bwd_dq"] == n_gpu["flash_bwd_dkv"] == 3 * L
           and all(n_gpu[n] == 0 for n in PLAIN),
-          f"smoke model train steps on the card: launches {n_gpu}")
+          f"{cfg.name} train steps on the card: launches {n_gpu}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     p_rel = max(((a.cpu() - b).norm() / b.norm()).item() for (_, a), (_, b)
                 in zip(flatten(p_gpu), flatten(p_cpu)))
-    print(f"smoke model f32, 3 train steps: losses card {l_gpu} cpu {l_cpu}; "
-          f"loss rel err {loss_rel:.3g}, params rel L2 (worst leaf) "
-          f"{p_rel:.3g} (limit {SMOKE_TRAIN_REL}); card launches {n_gpu}")
+    print(f"{cfg.name} f32, 3 train steps: losses card {l_gpu} cpu "
+          f"{l_cpu}; loss rel err {loss_rel:.3g}, params rel L2 (worst "
+          f"leaf) {p_rel:.3g} (limit {SMOKE_TRAIN_REL}); card launches "
+          f"{n_gpu}")
     check(loss_rel <= SMOKE_TRAIN_REL and p_rel <= SMOKE_TRAIN_REL,
-          "smoke model: card and CPU train steps differ")
+          f"{cfg.name}: card and CPU train steps differ")
 
 
 def model_faults(n_layers: int):
@@ -2412,33 +2503,34 @@ def param_gb(cfg) -> float:
     return cfg.param_count() * itemsize / 1e9
 
 
-def moe_memory_check(cfg) -> tuple:
+def memory_check(cfg, headroom_gb: float, label: str) -> tuple:
     """(free, total) GB on the card with nothing of the earlier phases
     resident; fails unless the free memory holds the params and
-    MOE_HEADROOM_GB."""
+    ``headroom_gb``."""
     gc.collect()
     torch.cuda.empty_cache()
     free, total = (b / 1e9 for b in torch.cuda.mem_get_info())
-    need = param_gb(cfg) + MOE_HEADROOM_GB
-    print(f"moe: {free:.2f} of {total:.2f} GB free on the card; the "
+    need = param_gb(cfg) + headroom_gb
+    print(f"{label}: {free:.2f} of {total:.2f} GB free on the card; the "
           f"{cfg.n_layers}-layer model needs {param_gb(cfg):.2f} GB of "
-          f"params + {MOE_HEADROOM_GB} GB")
-    check(free >= need, f"moe: {free:.2f} GB free on the card, the "
+          f"params + {headroom_gb} GB")
+    check(free >= need, f"{label}: {free:.2f} GB free on the card, the "
                         f"{cfg.n_layers}-layer model needs {need:.2f} GB")
     return free, total
 
 
 @contextmanager
 def recording_attention(store: list):
-    """Append each attention sublayer call's (x, params, rope, cache) to
-    ``store``, a decode call's K/V cloned before it appends its rows."""
+    """Append each attention sublayer call's (x, params, rope, cache,
+    kv_override) to ``store``, a decode call's K/V cache cloned before it
+    appends its rows."""
     saved = A.attention_sublayer
 
-    def record(x, p, cfg, rope, cache=None):
-        snap = None if cache is None else dict(
+    def record(x, p, cfg, rope, cache=None, kv_override=None):
+        snap = cache if cache is None or "k" not in cache else dict(
             cache, k=cache["k"].clone(), v=cache["v"].clone())
-        store.append((x, p, rope, snap))
-        return saved(x, p, cfg, rope, cache=cache)
+        store.append((x, p, rope, snap, kv_override))
+        return saved(x, p, cfg, rope, cache=cache, kv_override=kv_override)
     A.attention_sublayer = record
     try:
         yield
@@ -2473,32 +2565,41 @@ def one_row_short(q, kc, vc, lens):
     return DR.decode_attention_ref(q, kc, vc, lens - 1)
 
 
+def last_key_dropped(q, k, v, causal=True, scale=None):
+    """The plain non-causal (cross) attention without the last image
+    key."""
+    return plain_train(q, k[:, :-1], v[:, :-1], causal, scale)
+
+
 def attention_replay(rec, cfg, routes=None):
     """One recorded attention call again, on a copy of its cache: through
     the kernel wrappers (``routes`` None) or the (prefill, decode)
     ``routes``."""
-    x, p, rope, cache = rec
-    if cache is not None:
+    x, p, rope, cache, kv = rec
+    if cache is not None and "k" in cache:
         cache = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
     if routes is None:
-        return A.attention_sublayer(x, p, cfg, rope, cache=cache)[0]
+        return A.attention_sublayer(x, p, cfg, rope, cache=cache,
+                                    kv_override=kv)[0]
     with plain_attention(*routes):
-        return A.attention_sublayer(x, p, cfg, rope, cache=cache)[0]
+        return A.attention_sublayer(x, p, cfg, rope, cache=cache,
+                                    kv_override=kv)[0]
 
 
-def moe_attention_layers(records, cfg, fault_layer=None) -> list:
+def moe_attention_layers(records, cfg, fault_layer=None,
+                         faults=(one_key_late, one_row_short)) -> list:
     """Each layer's largest relative L2 error over its recorded attention
     calls (calls come a layer at a time, in order), the kernels against
-    the plain versions; the plain versions carry a planted fault (one key
-    late in a prefill, one row short in a decode step) in the calls of
-    ``fault_layer``."""
+    the plain versions; the plain versions carry the planted ``faults``
+    (by default one key late in a prefill, one row short in a decode
+    step) in the calls of ``fault_layer``."""
     L = cfg.n_layers
     plain = (plain_train, DR.decode_attention_ref)
     worst = [0.0] * L
     for i, rec in enumerate(records):
         layer = i % L
-        ref = attention_replay(rec, cfg, (one_key_late, one_row_short)
-                               if layer == fault_layer else plain)
+        ref = attention_replay(rec, cfg, faults if layer == fault_layer
+                               else plain)
         worst[layer] = max(worst[layer],
                            rel_l2(attention_replay(rec, cfg), ref))
     return worst
@@ -2525,7 +2626,7 @@ def moe(device, card):
                                      (kimi_k2_1t, [16, 5, 11])))
     cfg = moe_config()
     L, V = cfg.n_layers, cfg.vocab
-    free_gb, total_gb = moe_memory_check(cfg)
+    free_gb, total_gb = memory_check(cfg, MOE_HEADROOM_GB, "moe")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=device)
@@ -3616,6 +3717,392 @@ def rwkv6(device, card):
         "float32_path": f32, "bf16": bf16, "profile": profile}}
 
 
+# ---------------------------------------------------------------------------
+# the families phase: llama-3.2-vision, musicgen-medium, starcoder2-3b
+# ---------------------------------------------------------------------------
+
+
+def small_vlm_matches_cpu(device) -> None:
+    """The vlm smoke model in float32, its gates at VLM_GATE: a greedy loop
+    through ``make_prefill_step`` over seeded random image embeddings and
+    ``make_decode_step`` gives the same tokens on the card (kernels) as on
+    the CPU (plain versions)."""
+    cfg = llama32_vision_90b.smoke_config(dtype=torch.float32)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params["cross_blocks"]["gate"].fill_(VLM_GATE)
+    rng = np.random.RandomState(1)
+    batch = {"tokens": rng.randint(1, cfg.vocab, (3, 16)),
+             "image_embeds": rng.randn(3, cfg.n_image_tokens,
+                                       cfg.d_model).astype(np.float32)}
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", build_model(cfg, device))):
+        p = serving_params(params, cfg, model.device)
+        prefill = make_prefill_step(model, max_len=32)
+        decode = make_decode_step(model)
+        zero_counts()
+        logits, cache = prefill(p, batch)
+        toks = []
+        for _ in range(12):
+            toks.append(logits[:, -1].argmax(-1, keepdim=True))
+            logits, cache = decode(p, cache, toks[-1])
+        out[dev] = torch.cat(toks, 1).cpu().numpy()
+    n = read_counts()
+    check(np.array_equal(out["cuda"], out["cpu"]),
+          f"{cfg.name} smoke model: card and CPU tokens differ")
+    G, E = vlm_layout(cfg)
+    check(n == step_launches(cfg.n_layers, 1, 12),
+          f"{cfg.name} smoke model on the card: launches {n}")
+    print(f"{cfg.name} smoke model f32 ({G} groups, gates {VLM_GATE}, "
+          f"random images): card tokens equal CPU tokens; card launches "
+          f"{n}")
+
+
+@contextmanager
+def counting_masks(tally: dict):
+    """Count each flash-attention call of the attention sublayer in
+    ``tally`` by its mask ("causal", "non-causal"), beside the wrapper's
+    own launch count."""
+    saved = A.flash_attention_train
+
+    def count(q, k, v, causal=True, scale=None):
+        tally["causal" if causal else "non-causal"] += 1
+        return saved(q, k, v, causal=causal, scale=scale)
+    A.flash_attention_train = count
+    try:
+        yield
+    finally:
+        A.flash_attention_train = saved
+
+
+def vlm_config():
+    """llama-3.2-vision at full width, VLM_LAYERS of its 100 layers, the
+    params in bf16."""
+    return llama32_vision_90b.config(n_layers=VLM_LAYERS,
+                                     param_dtype=torch.bfloat16)
+
+
+def vlm_full_width(device, card) -> tuple:
+    """llama-3.2-vision at full width (VLM_LAYERS of 100 layers, bf16
+    params, the gates at VLM_GATE): a prefill step over seeded random
+    image embeddings and N_NEW decode steps, then ``generate`` with the
+    reference's zero images, each with exact launches; each layer's
+    attention sublayer, kernel against plain, gated, with a planted
+    fault dropping the last image key of one cross block; the whole
+    path printed; step times and the profile. Returns (launches by path,
+    the line's entry)."""
+    cfg = vlm_config()
+    check(cfg.n_image_tokens == VLM_IMAGE_TOKENS, f"config {cfg}")
+    L, V = cfg.n_layers, cfg.vocab
+    G, E = vlm_layout(cfg)
+    free_gb, total_gb = memory_check(cfg, VLM_HEADROOM_GB, "vlm")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    params["cross_blocks"]["gate"].fill_(VLM_GATE)
+    engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN, device=device)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"setup: llama-3.2-vision at full width, {L} of 100 layers ({G} "
+          f"groups of a cross block and {E} self blocks; "
+          f"{cfg.param_count() / 1e9:.3f} B params, {param_gb(cfg):.2f} GB "
+          f"in bf16) initialised in {init_s:.1f} s; set-up peak "
+          f"{setup_peak_gb:.2f} GB; every cross block's gate set to "
+          f"{VLM_GATE} (tanh {np.tanh(VLM_GATE):.4f})")
+
+    rng = np.random.RandomState(9)
+    prompts = rng.randint(1, V, size=(4, 512)).astype(np.int32)
+    img = torch.randn((4, cfg.n_image_tokens, cfg.d_model),
+                      generator=torch.Generator(device=device).manual_seed(7),
+                      device=device).to(cfg.dtype)
+    batch = {"tokens": prompts, "image_embeds": img}
+    prefill_step = make_prefill_step(model, max_len=SERVE_MAX_LEN)
+    decode_step = make_decode_step(model)
+    step_masks = {"prefill": {"causal": G * E, "non-causal": G},
+                  "decode": {"causal": 0, "non-causal": 0}}
+    launches, seconds = {}, {}
+
+    def counted(name, want, masks, fn):
+        """fn() with the counts set to 0 just before and read just
+        after, held to exactly ``want`` launches and ``masks`` B1 calls
+        by mask."""
+        tally = {"causal": 0, "non-causal": 0}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with counting_masks(tally):
+            out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[f"vlm {name}"] = n = read_counts()
+        print(f"vlm {name} launches: {n}; B1 calls by mask {tally}")
+        check(n == want and tally == masks,
+              f"vlm {name}: launches {n} and B1 calls {tally}, want "
+              f"exactly {want} and {masks}")
+        return out
+
+    def decode_loop(logits, cache):
+        toks = []
+        for _ in range(N_NEW):
+            toks.append(logits[:, -1].argmax(-1, keepdim=True))
+            logits, cache = decode_step(engine.params, cache, toks[-1])
+        return torch.cat(toks, 1).cpu().numpy()
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = counted("prefill step (images)",
+                            step_launches(L, 1, 0), step_masks["prefill"],
+                            lambda: prefill_step(engine.params, batch))
+    first = logits.float()
+    with_images = counted(f"{N_NEW} decode steps", step_launches(L, 0, N_NEW),
+                          step_masks["decode"],
+                          lambda: decode_loop(logits, cache))
+    del logits, cache
+    zero_images = counted("generate (zero images)",
+                          step_launches(L, 1, N_NEW), step_masks["prefill"],
+                          lambda: engine.generate(prompts, N_NEW))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(with_images.shape == (4, N_NEW)
+          and ((with_images >= 0) & (with_images < V)).all(),
+          f"vlm tokens with images {with_images.shape}")
+    check(zero_images.shape == (4, 512 + N_NEW)
+          and np.array_equal(zero_images[:, :512], prompts)
+          and ((zero_images[:, 512:] >= 0) & (zero_images[:, 512:] < V)).all(),
+          f"vlm generate tokens {zero_images.shape}")
+    # the image path is live at full width: the images move the first
+    # logits by more than the kernels' rounding does
+    zero_first, _ = engine._prefill(prompts)
+    image_effect = rel_l2(first, zero_first.float())
+    differ = float((with_images != zero_images[:, 512:]).mean())
+    print(f"vlm: the images move the prefill logits by rel L2 "
+          f"{image_effect:.3g} against the zero images (must exceed "
+          f"{LOGITS_REL_L2}); {differ:.3f} of the greedy tokens differ")
+    check(bool(torch.isfinite(first).all()), "non-finite vlm logits")
+    check(image_effect > LOGITS_REL_L2,
+          "vlm: the image embeddings do not reach the logits")
+
+    # the kernel path against the plain path, teacher-forced
+    feed = [torch.as_tensor(rng.randint(1, V, size=(4, 1)), device=device)
+            for _ in range(4)]
+
+    def forced():
+        logits, cache = prefill_step(engine.params, batch)
+        out = [logits.float()]
+        for tok in feed:
+            logits, cache = decode_step(engine.params, cache, tok)
+            out.append(logits.float())
+        return torch.cat(out, dim=1)
+
+    records = []
+    with recording_attention(records):
+        fast = forced()
+    with plain_attention():
+        slow = forced()
+    check(bool(torch.isfinite(fast).all()), "non-finite vlm logits")
+    whole = rel_l2(fast, slow)
+    agree = (fast.argmax(-1) == slow.argmax(-1)).float().mean().item()
+    cross = [g * (E + 1) for g in range(G)]      # layer order: cross, selfs
+    check(all(records[i][4] is not None for i in cross)
+          and sum(r[4] is not None for r in records) == 5 * G,
+          "vlm: the recorded cross-attention calls are not the cross blocks")
+    per_layer = moe_attention_layers(records, cfg)
+    fault_layer = cross[-1]
+    faulted = moe_attention_layers(records, cfg, fault_layer,
+                                   (last_key_dropped, one_row_short))
+    del records
+    print(f"vlm kernel vs plain (prefill + 4 decode steps): whole-path bf16 "
+          f"logits rel L2 {whole:.3g} (not gated), argmax agreement "
+          f"{agree:.3f}; each layer's attention sublayer rel L2 "
+          f"{[f'{r:.3g}' for r in per_layer]} (cross blocks {cross}; limit "
+          f"{MOE_ATTN_REL_L2})")
+    print(f"  planted fault in cross block {fault_layer}'s plain attention "
+          f"(the last of {cfg.n_image_tokens} image keys dropped): "
+          f"{[f'{r:.3g}' for r in faulted]}, rejected "
+          f"{faulted[fault_layer] > MOE_ATTN_REL_L2}")
+    check(max(per_layer) <= MOE_ATTN_REL_L2,
+          "vlm: an attention sublayer's kernel path disagrees with its plain "
+          "path")
+    check(faulted[fault_layer] > MOE_ATTN_REL_L2,
+          "vlm: the attention limit passes a planted fault dropping the last "
+          "image key")
+
+    prefill_runs, decode_ms, profile = timed_steps(
+        engine, prompts, prefill=lambda: prefill_step(engine.params, batch))
+    step = profile["decode_step"]
+    b3 = step and step["b3_kernels_per_step"]
+    check(b3 == L, f"vlm decode step: {b3} B3 device kernels, not one for "
+                   f"each of {L} calls")
+    return launches, {
+        "model": f"llama-3.2-vision-90b at full width, {L} of 100 layers "
+                 f"({G} groups of a cross block and {E} self blocks; d=8192, "
+                 f"64 heads, 8 KV heads, d_ff 28672, vocab 128256, "
+                 f"{cfg.n_image_tokens} image tokens), random bf16 params, "
+                 f"gates {VLM_GATE}",
+        "card": card, "params_b": cfg.param_count() / 1e9,
+        "params_gb": param_gb(cfg), "init_s": init_s,
+        "free_gb_before": free_gb, "total_gb": total_gb,
+        "prefill_ms": min(prefill_runs), "prefill_ms_runs": prefill_runs,
+        "prefill_shape": "B=4 S=512, images (4, 1600, 8192)",
+        "decode_ms_per_step": decode_ms, "decode_batch": 4,
+        "prefill_and_decode_s": seconds["prefill step (images)"]
+        + seconds[f"{N_NEW} decode steps"],
+        "generate_s": seconds["generate (zero images)"],
+        "generate_tokens_per_s": 4 * N_NEW / seconds["generate (zero images)"],
+        "decode_tokens_per_s": 4 / (decode_ms / 1e3),
+        "peak_memory_gb": peak_gb, "setup_peak_memory_gb": setup_peak_gb,
+        "image_effect_logits_rel_l2": image_effect,
+        "image_changes_tokens_share": differ,
+        "whole_path_logits_rel_l2": whole, "argmax_agreement": agree,
+        "attention_layer_rel_l2": per_layer, "cross_layers": cross,
+        "planted_fault_layer_rel_l2": faulted, "launches": launches,
+        "profile": profile}
+
+
+def kv_serving(device, card, arch, scheduler: bool) -> tuple:
+    """A dense-path (dense or audio) config at full width: generate
+    (uniform and ragged) and, with ``scheduler``, ``RequestScheduler`` over
+    ``TPServeEngine(world=None)``, each with exactly L B1 a prefill or
+    admission and L B3 a decode step; the serving logits, kernel path
+    against plain path, gated; step times and the profile. Returns
+    (launches by path, the line's entry)."""
+    cfg = arch.config()
+    L, V, name = cfg.n_layers, cfg.vocab, cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    engine = ServeEngine(model, params, max_len=SERVE_MAX_LEN, device=device)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"setup: {name} ({cfg.family}, {L} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params) initialised and cast to "
+          f"bf16 in {init_s:.1f} s")
+    rng = np.random.RandomState(11)
+    prompts = rng.randint(1, V, size=(4, 512)).astype(np.int32)
+    paths = {"generate uniform": lambda: engine.generate(prompts, N_NEW),
+             "generate ragged": lambda: engine.generate(
+                 prompts, N_NEW, prompt_lens=PROMPT_LENS)}
+    if scheduler:
+        requests = [(rng.randint(1, V, size=int(rng.randint(16, SCHED_PREFILL
+                                                             + 1))
+                                 ).astype(np.int32), int(rng.randint(8, 33)))
+                    for _ in range(SCHED_REQUESTS)]
+        tp = TPServeEngine(model, None, world=None, max_len=SERVE_MAX_LEN,
+                           local=engine, device=device)
+        sched = RequestScheduler(tp, n_slots=SCHED_SLOTS,
+                                 prefill_len=SCHED_PREFILL)
+        for prompt, n in requests:
+            sched.submit(prompt, n)
+        paths["scheduler"] = sched.run
+    out, seconds, launches = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for path, run in paths.items():
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out[path] = run()
+        torch.cuda.synchronize()
+        seconds[path] = time.perf_counter() - t0
+        launches[f"{name} {path}"] = n = read_counts()
+        steps = (SCHED_REQUESTS, sched.decode_steps) \
+            if path == "scheduler" else (1, N_NEW)
+        want = step_launches(L, *steps)
+        print(f"{name} {path} launches: {n}")
+        check(n == want, f"{name} {path}: launches {n}, want exactly {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for path in ("generate uniform", "generate ragged"):
+        toks = out[path]
+        check(toks.shape == (4, 512 + N_NEW)
+              and np.array_equal(toks[:, :512], prompts)
+              and ((toks[:, 512:] >= 0) & (toks[:, 512:] < V)).all(),
+              f"{name} {path} tokens {toks.shape}")
+    check(np.array_equal(out["generate ragged"][3],
+                         out["generate uniform"][3]),
+          f"{name}: the full-length ragged row differs from the uniform run")
+    if scheduler:
+        for r, (prompt, n) in zip(sched.requests, requests):
+            check(r.state == "done" and len(r.tokens) == n
+                  and all(0 <= t < V for t in r.tokens),
+                  f"{name} request {r.rid}: {r.state} with "
+                  f"{len(r.tokens)}/{n} tokens")
+
+    feed = [torch.as_tensor(rng.randint(1, V, size=(4, 1)), device=device)
+            for _ in range(4)]
+    fast = teacher_forced(engine, prompts, feed)
+    with plain_attention():
+        slow = teacher_forced(engine, prompts, feed)
+    check(bool(torch.isfinite(fast).all()), f"non-finite {name} logits")
+    rel = rel_l2(fast, slow)
+    agree = (fast.argmax(-1) == slow.argmax(-1)).float().mean().item()
+    print(f"{name} kernel vs plain (prefill + 4 decode steps, bf16 logits): "
+          f"rel L2 {rel:.3g} (limit {LOGITS_REL_L2}), argmax agreement "
+          f"{agree:.3f}")
+    check(rel <= LOGITS_REL_L2,
+          f"{name}: the kernel path disagrees with the plain path")
+
+    prefill_runs, decode_ms, profile = timed_steps(engine, prompts)
+    step = profile["decode_step"]
+    b3 = step and step["b3_kernels_per_step"]
+    check(b3 == L, f"{name} decode step: {b3} B3 device kernels, not one "
+                   f"for each of {L} calls")
+    t_gen = seconds["generate uniform"]
+    entry = {"model": f"{name} ({cfg.family}, {L} layers, d={cfg.d_model}, "
+                      f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, hd "
+                      f"{cfg.hd}, d_ff {cfg.d_ff}, {cfg.act}, vocab "
+                      f"{cfg.vocab}), random bf16 weights",
+             "card": card, "params_b": cfg.param_count() / 1e9,
+             "init_s": init_s,
+             "prefill_ms": min(prefill_runs), "prefill_ms_runs": prefill_runs,
+             "prefill_shape": "B=4 S=512",
+             "decode_ms_per_step": decode_ms, "decode_batch": 4,
+             "generate_uniform_s": t_gen,
+             "generate_ragged_s": seconds["generate ragged"],
+             "generate_tokens_per_s": 4 * N_NEW / t_gen,
+             "decode_tokens_per_s": 4 / (decode_ms / 1e3),
+             "peak_memory_gb": peak_gb,
+             "logits_rel_l2_kernel_vs_plain": rel, "argmax_agreement": agree,
+             "launches": launches, "profile": profile}
+    if scheduler:
+        n_tokens = sum(n for _, n in requests)
+        entry.update(scheduler_s=seconds["scheduler"],
+                     scheduler_tokens_per_s=n_tokens / seconds["scheduler"],
+                     scheduler_decode_steps=sched.decode_steps)
+    return launches, entry
+
+
+def families(device, card) -> tuple:
+    """The vlm and audio families and the remaining dense configs: the
+    float32 smoke models on the card against the CPU (musicgen-medium,
+    starcoder2-3b and deepseek-67b serving ragged prompts, the vlm's
+    greedy loop over images and its 3 train steps), then
+    llama-3.2-vision, musicgen-medium and starcoder2-3b at full width.
+    Returns (launches by path, the families line)."""
+    t0 = time.perf_counter()
+    small_model_matches_cpu(device, ((musicgen_medium, [16, 5, 11]),
+                                     (starcoder2_3b, [16, 5, 11]),
+                                     (deepseek_67b, [16, 5, 11])))
+    small_vlm_matches_cpu(device)
+    small_train_matches_cpu(
+        device, llama32_vision_90b.smoke_config(dtype=torch.float32))
+    launches, line = {}, {}
+    n, line["llama-3.2-vision-90b"] = vlm_full_width(device, card)
+    launches.update(n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, scheduler in ((musicgen_medium, True), (starcoder2_3b, False)):
+        n, entry = kv_serving(device, card, arch, scheduler)
+        launches.update(n)
+        line[arch.config().name] = entry
+        gc.collect()
+        torch.cuda.empty_cache()
+    line["wall_s"] = time.perf_counter() - t0
+    print(f"families phase: {line['wall_s']:.1f} s")
+    return launches, {"families": line}
+
+
 def matmul_shapes(prof, n: int):
     """The matmul kernels' device ms per step by (kernel, launching
     operator, its input shapes and dtypes), the largest 8."""
@@ -3778,6 +4265,9 @@ def main() -> None:
     r_launches, rwkv = rwkv6(device, card)
     launches["rwkv6 generate"] = r_launches["generate"]
     torch.cuda.empty_cache()
+    f_launches, families_line = families(device, card)
+    launches.update(f_launches)
+    torch.cuda.empty_cache()
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
@@ -3793,6 +4283,7 @@ def main() -> None:
     print(json.dumps(campaign_line))
     print(json.dumps(moe_line))
     print(json.dumps(serving_campaign_line))
+    print(json.dumps(families_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the model substrate (``repro`` stays the reference).
 
-The port serves and trains dense models on one NVIDIA H100 through
-hand-written CUDA kernels (``repro_torch.kernels``). It imports ``torch`` and numpy only:
-never ``jax`` and nothing of ``repro``. Every entry point takes a
+The port serves and trains the reference's model families on one NVIDIA
+H100 through hand-written CUDA kernels (``repro_torch.kernels``). It
+imports ``torch`` and numpy only: never ``jax`` and nothing of
+``repro``. Every entry point takes a
 ``device``; the default is ``"cuda"``, and a machine without a card raises
 unless the caller asks for ``"cpu"``.
 """

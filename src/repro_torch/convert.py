@@ -3,14 +3,17 @@ the port.
 
 A reference param tree (``jax.tree_util.tree_map(np.asarray, params)``) is
 a nested dict of numpy arrays. Its leaves, in ``jax.tree_util`` order, are,
-for the dense family, ``blocks/attn/{wk,wo,wq,wv}``, ``blocks/ln1``,
-``blocks/ln2``, ``blocks/mlp/{w_down,w_gate,w_up}``, then ``embed``,
-``final_norm`` and ``lm_head``; for the hybrid family ``embed``,
-``final_norm``, ``groups/{ln,m/*}``, ``lm_head``, ``rem/{ln,m/*}`` and
-``shared_attn/{attn/*,ln,ln2,mlp/*}``; for the moe family the dense
-family's with ``blocks/moe/{router,w_down,w_gate,w_up}`` (and
-``blocks/moe/shared/*`` with a shared expert) in place of the MLP; for
-the rwkv6 family ``blocks/{ln1,ln2}``, ``blocks/tm/*``, ``embed``,
+for the dense and audio families, ``blocks/attn/{wk,wo,wq,wv}``,
+``blocks/ln1``, ``blocks/ln2``, ``blocks/mlp/{w_down,w_gate,w_up}``, then
+``embed``, ``final_norm`` and ``lm_head``; for the vlm family
+``cross_blocks/{attn/*,gate,ln1,ln2,mlp/*}`` (stacked over the groups),
+``embed``, ``final_norm``, ``lm_head`` and ``self_blocks/{attn/*,ln1,ln2,
+mlp/*}`` (stacked over the groups and their self blocks); for the hybrid
+family ``embed``, ``final_norm``, ``groups/{ln,m/*}``, ``lm_head``,
+``rem/{ln,m/*}`` and ``shared_attn/{attn/*,ln,ln2,mlp/*}``; for the moe
+family the dense family's with ``blocks/moe/{router,w_down,w_gate,w_up}``
+(and ``blocks/moe/shared/*`` with a shared expert) in place of the MLP;
+for the rwkv6 family ``blocks/{ln1,ln2}``, ``blocks/tm/*``, ``embed``,
 ``final_norm`` and ``lm_head``. :func:`repro_torch.models.lm.flatten`
 walks the port's params in the same order.
 """
@@ -25,7 +28,7 @@ import torch
 from . import resolve_device
 from .models.blocks import CONV_K
 from .models.common import ModelConfig
-from .models.lm import flatten, hybrid_layout, unflatten
+from .models.lm import flatten, hybrid_layout, unflatten, vlm_layout
 
 
 def _block_shapes(cfg: ModelConfig, lead: tuple, attn_mlp: bool) -> dict:
@@ -78,7 +81,7 @@ def _rwkv6_shapes(cfg: ModelConfig, L: int) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """'/'-joined path -> shape of every param leaf of ``cfg``'s family
-    (dense, moe, hybrid or rwkv6)."""
+    (dense, audio, moe, vlm, hybrid or rwkv6)."""
     D, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
     shapes = {"embed": (V, D), "final_norm": (D,)}
     if not cfg.tie_embeddings:
@@ -93,6 +96,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
                                      ln=(D,), ln2=(D,))
     elif cfg.family == "rwkv6":
         blocks["blocks"] = _rwkv6_shapes(cfg, L)
+    elif cfg.family == "vlm":
+        G, E = vlm_layout(cfg)
+        blocks["cross_blocks"] = dict(_block_shapes(cfg, (G,), True),
+                                      gate=(G, 1), ln1=(G, D), ln2=(G, D))
+        blocks["self_blocks"] = dict(_block_shapes(cfg, (G, E), True),
+                                     ln1=(G, E, D), ln2=(G, E, D))
     elif cfg.family == "moe":
         attn = {k: v for k, v in _block_shapes(cfg, (L,), True).items()
                 if k.startswith("attn/")}

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -38,12 +38,19 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig):
     return train_step
 
 
-def make_prefill_step(model: LM):
-    """Prefill step over a token batch; returns the model's (logits,
-    cache)."""
+def make_prefill_step(model: LM, max_len: Optional[int] = None):
+    """Prefill step over a token batch (plus the vlm family's image
+    embeddings, ``batch.get("image_embeds")``; the other families take
+    none); returns the model's (logits, cache). ``max_len`` is the decode
+    cache's length; None gives the prompt's length + 1, as in the
+    reference."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"])
+        if model.cfg.family == "vlm":
+            return model.prefill(params, batch["tokens"],
+                                 img_embeds=batch.get("image_embeds"),
+                                 max_len=max_len)
+        return model.prefill(params, batch["tokens"], max_len=max_len)
     return prefill_step
 
 

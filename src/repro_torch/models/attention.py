@@ -1,5 +1,5 @@
 """Attention sublayer of the port: GQA with RoPE, for training, prefill
-and decode.
+and decode, and the vlm family's cross-attention over image K/V.
 
 Training and prefill run differentiable flash attention (the forward
 kernel, and the two backward kernels when autograd asks for gradients),
@@ -15,10 +15,10 @@ import torch
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention_train
-from .common import ModelConfig, init_dense, rotate
+from .common import ModelConfig, init_dense, leading_axes, rotate
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, heads, hd) -> (B, S, heads, hd)."""
     D, n, hd = w.shape
     return (x @ w.reshape(D, n * hd).to(x.dtype)).view(*x.shape[:2], n, hd)
@@ -51,8 +51,9 @@ def decode_rows(ln: torch.Tensor, B: int, S: int):
 
 
 def attention_sublayer(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                       rope: Tuple[torch.Tensor, torch.Tensor],
-                       cache: Optional[dict] = None) -> Tuple:
+                       rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                       cache: Optional[dict] = None,
+                       kv_override: Optional[Tuple] = None) -> Tuple:
     """Self-attention sublayer (no residual or norm; the caller adds them).
 
     ``rope`` is the (cos, sin) pair of
@@ -64,10 +65,30 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg: ModelConfig,
     Decode: x (B, 1, D) with ``cache`` {"k", "v": (B, S_max, KV, hd),
     "at", "attend": from :func:`decode_rows`} -> (out, (k_cache,
     v_cache)); the K/V rows are written in place.
+
+    Cross-attention (the vlm family): ``kv_override`` = (k, v), each (B, n,
+    KV, hd), the image tokens' K/V. Neither q nor k is rotated (``rope``
+    is not read) and each query attends over all n keys: with ``cache``
+    None, flash attention, non-causal (B1, and B2a/B2b under autograd);
+    at a decode step ``cache`` = {"attend": (B,) int32, n for every row},
+    and the one query row goes to the decode-attention kernel (B3) with
+    the image K/V as its cache. That is the function the reference
+    computes through its flash kernel at Sq = 1 (``cache`` None there);
+    B3 takes one query row per (b, head) against a (B, S, KV, hd) cache,
+    where B1's 128-row query blocks would do 1/128 useful work. Returns
+    (out, (k, v)).
     """
-    q = rotate(_heads(x, p["wq"]), *rope)
-    k = rotate(_heads(x, p["wk"]), *rope)
-    v = _heads(x, p["wv"])
+    q = heads(x, p["wq"])
+    if kv_override is not None:
+        k, v = kv_override
+        if cache is None:
+            out = flash_attention_train(q, k, v, causal=False)
+        else:
+            out = decode_attention(q[:, 0], k, v, cache["attend"])[:, None]
+        return _out(out, p["wo"], x.dtype), (k, v)
+    q = rotate(q, *rope)
+    k = rotate(heads(x, p["wk"]), *rope)
+    v = heads(x, p["wv"])
     if cache is None:
         out = flash_attention_train(q, k, v, causal=True)
         new_kv = (k, v)
@@ -78,20 +99,24 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg: ModelConfig,
         out = decode_attention(q[:, 0], k_cache, v_cache,
                                cache["attend"])[:, None]
         new_kv = (k_cache, v_cache)
+    return _out(out, p["wo"], x.dtype), new_kv
+
+
+def _out(out: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, S, H, hd) x (H, hd, D) -> (B, S, D), wo cast to ``dtype``."""
     B, S, H, hd = out.shape
-    wo = p["wo"]
-    o = out.reshape(B, S, H * hd) @ wo.reshape(H * hd, wo.shape[-1]).to(x.dtype)
-    return o, new_kv
+    return out.reshape(B, S, H * hd) @ wo.reshape(H * hd, wo.shape[-1]).to(dtype)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
-                   layers: Optional[int]) -> dict:
+                   layers) -> dict:
     """Attention weights of ``layers`` blocks, stacked on a leading axis
-    (one unstacked block when ``layers`` is None).
+    (one unstacked block when ``layers`` is None; a tuple stacks on as many
+    axes, see :func:`~repro_torch.models.common.leading_axes`).
 
     Fan-ins follow the reference: D for wq/wk/wv, H for wo."""
     D, H, KVh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    lead = () if layers is None else (layers,)
+    lead = leading_axes(layers)
     k = len(lead)
     return {
         "wq": init_dense(gen, (*lead, D, H, hd), in_axis=k, dtype=dtype),

@@ -11,7 +11,7 @@ import torch.nn.functional as F
 
 from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from ..kernels.ssm_scan.ops import ssd_scan
-from .common import ModelConfig, act_fn, init_dense
+from .common import ModelConfig, act_fn, init_dense, leading_axes
 
 CONV_K = 4   # width of the Mamba2 block's depthwise causal conv
 
@@ -23,11 +23,11 @@ def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     return h @ p["w_down"].to(x.dtype)
 
 
-def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
-             layers: Optional[int]) -> dict:
+def init_mlp(gen: torch.Generator, d: int, f: int, dtype, layers) -> dict:
     """MLP weights of ``layers`` blocks, stacked on a leading layer axis
-    (one unstacked block when ``layers`` is None)."""
-    lead = () if layers is None else (layers,)
+    (one unstacked block when ``layers`` is None; a tuple stacks on as many
+    axes, see :func:`~repro_torch.models.common.leading_axes`)."""
+    lead = leading_axes(layers)
     k = len(lead)
     return {"w_gate": init_dense(gen, (*lead, d, f), in_axis=k, dtype=dtype),
             "w_up": init_dense(gen, (*lead, d, f), in_axis=k, dtype=dtype),

@@ -153,6 +153,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
+def leading_axes(layers) -> tuple:
+    """The leading axes of stacked block weights: none for one unstacked
+    block (``layers`` None), ``(layers,)`` for an int, else the tuple
+    given (the vlm family's self blocks stack over groups and blocks)."""
+    if layers is None:
+        return ()
+    return (layers,) if isinstance(layers, int) else tuple(layers)
+
+
 def init_dense(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn from ``gen``, on ``gen``'s device.

@@ -1,6 +1,7 @@
-"""Decoder LM of the port: the dense family (:class:`LM`), the moe family
-(:class:`MoeLM`), the zamba2 hybrid family (:class:`HybridLM`) and the
-rwkv6 family (:class:`RwkvLM`), for training and serving.
+"""Decoder LM of the port: the dense and audio families (:class:`LM`), the
+moe family (:class:`MoeLM`), the vlm family (:class:`VlmLM`), the zamba2
+hybrid family (:class:`HybridLM`) and the rwkv6 family (:class:`RwkvLM`),
+for training and serving.
 
 Parameters are a nested dict of tensors with the reference's keys, the
 blocks stacked on a leading layer axis; the layer loop is plain Python over
@@ -29,7 +30,8 @@ from .common import ModelConfig, init_dense, rms_norm, rope_cos_sin
 CAST_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "router", "embed", "lm_head", "w_in", "w_out", "w_conv",
                 "dt_bias", "d_skip", "wr", "wg", "ww", "w_k", "w_v", "w_r",
-                "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr")
+                "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr",
+                "gate")
 
 
 def flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -73,6 +75,21 @@ def serving_params(params: Dict[str, Any], cfg: ModelConfig,
     return unflatten((path, cast(path, leaf)) for path, leaf in flatten(params))
 
 
+def _check_remat(cfg: ModelConfig) -> None:
+    """Remat "full" and "none" are ported; "dots" is not (ROADMAP A3b)."""
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
+            f"remat 'dots'); use 'full' or 'none'")
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean of logsumexp minus the target's logit, in float32."""
+    logits = logits.float()
+    picked = logits.gather(-1, targets[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).mean()
+
+
 def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s params: views into the stacked blocks."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -100,14 +117,17 @@ def hybrid_layout(cfg: ModelConfig):
 
 
 class LM:
-    """Dense decoder LM (GQA attention, gated MLP, RMSNorm, RoPE)."""
+    """Dense decoder LM (GQA attention, gated MLP, RMSNorm, RoPE). The audio
+    family (musicgen) is the same model over audio-codec tokens, as in the
+    reference."""
 
-    family = "dense"
+    families = ("dense", "audio")
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.family != self.family:
-            raise ValueError(f"{type(self).__name__} serves the "
-                             f"{self.family} family, not {cfg.family!r}")
+        if cfg.family not in self.families:
+            served = " and the ".join(f"{f} family" for f in self.families)
+            raise ValueError(f"{type(self).__name__} serves the {served}, "
+                             f"not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -115,21 +135,30 @@ class LM:
         """Random params in ``cfg.param_dtype`` from ``gen`` (on this LM's
         device). Same shapes, keys and init scales as the reference; the
         numbers differ, since a torch.Generator is not jax.random."""
-        if gen.device != self.device:
-            raise ValueError(f"generator on {gen.device}, LM on {self.device}")
         cfg = self.cfg
         dt = cfg.param_dtype
-        D, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+        D, L = cfg.d_model, cfg.n_layers
         ones = lambda *shape: torch.ones(shape, dtype=dt, device=self.device)
-        params: Dict[str, Any] = {
-            "embed": init_dense(gen, (V, D), dtype=dt),
-            "final_norm": ones(D),
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
+        params = self._init_embedding(gen)
         params["blocks"] = {"attn": A.init_attention(gen, cfg, dt, L),
                             "ln1": ones(L, D), "ln2": ones(L, D),
                             **self._init_ffn(gen, dt)}
+        return params
+
+    def _init_embedding(self, gen: torch.Generator) -> Dict[str, Any]:
+        """``embed``, ``final_norm`` and, unless tied, ``lm_head``, drawn
+        from ``gen`` in ``cfg.param_dtype``; ``gen`` must be on this LM's
+        device."""
+        if gen.device != self.device:
+            raise ValueError(f"generator on {gen.device}, LM on {self.device}")
+        cfg = self.cfg
+        dt, D, V = cfg.param_dtype, cfg.d_model, cfg.vocab
+        params: Dict[str, Any] = {
+            "embed": init_dense(gen, (V, D), dtype=dt),
+            "final_norm": torch.ones(D, dtype=dt, device=self.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
         return params
 
     def _init_ffn(self, gen: torch.Generator, dtype) -> Dict[str, Any]:
@@ -169,6 +198,22 @@ class LM:
             head = params["embed"].T
         return x @ head.to(x.dtype)
 
+    def _prefill_logits(self, params, x, cache, last_pos):
+        """The end of a prefill: the final norm, then (logits (B, 1, V),
+        ``cache``) at column S-1 with the scalar length S, or at each
+        row's ``last_pos`` ((B,) ints) with the lengths ``last_pos + 1``."""
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        B, S = x.shape[:2]
+        if last_pos is None:
+            sel = x[:, -1:]
+            cache["len"] = torch.tensor(S, dtype=torch.int32,
+                                        device=self.device)
+        else:
+            last_pos = torch.as_tensor(last_pos, device=self.device).long()
+            sel = x[torch.arange(B, device=self.device), last_pos][:, None]
+            cache["len"] = (last_pos + 1).to(torch.int32)
+        return self._logits(params, sel), cache
+
     def forward(self, params, tokens) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``.
 
@@ -179,10 +224,7 @@ class LM:
         layer again in the backward (``torch.utils.checkpoint``), as the
         reference's ``jax.checkpoint`` does; ``"none"`` keeps everything."""
         cfg = self.cfg
-        if cfg.remat not in ("full", "none"):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
-                f"remat 'dots'); use 'full' or 'none'")
+        _check_remat(cfg)
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
@@ -202,10 +244,7 @@ class LM:
         the logits of tokens[:, :-1] in float32, logsumexp minus the logit
         of each target tokens[:, 1:]. A scalar float32 tensor."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits = self.forward(params, inputs).float()
-        picked = logits.gather(-1, targets[..., None])[..., 0]
-        return (torch.logsumexp(logits, dim=-1) - picked).mean()
+        return _nll(self.forward(params, tokens[:, :-1]), tokens[:, 1:])
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 last_pos=None):
@@ -231,16 +270,7 @@ class LM:
             x, (k, v) = self._dense_block(x, _layer(blocks, i), rope)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if last_pos is None:
-            sel = x[:, -1:]
-            cache["len"] = torch.tensor(S, dtype=torch.int32,
-                                        device=self.device)
-        else:
-            last_pos = torch.as_tensor(last_pos, device=self.device).long()
-            sel = x[torch.arange(B, device=self.device), last_pos][:, None]
-            cache["len"] = (last_pos + 1).to(torch.int32)
-        return self._logits(params, sel), cache
+        return self._prefill_logits(params, x, cache, last_pos)
 
     def decode_step(self, params, cache, tokens):
         """tokens (B, 1) -> (logits (B, 1, V), cache).
@@ -276,7 +306,7 @@ class MoeLM(LM):
     together, so a row's experts depend on the other rows of its batch
     (expert capacity)."""
 
-    family = "moe"
+    families = ("moe",)
 
     def _init_ffn(self, gen: torch.Generator, dtype) -> Dict[str, Any]:
         return {"moe": BL.init_moe(gen, self.cfg, dtype, self.cfg.n_layers)}
@@ -295,6 +325,191 @@ class MoeLM(LM):
             + 0.01 * BL.moe_aux_loss(x, first, self.cfg)
 
 
+def vlm_layout(cfg: ModelConfig):
+    """(n_groups, self blocks per group) of a vlm ``cfg``: each group is
+    one cross block and ``cross_attn_every - 1`` self blocks."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
+class VlmLM(LM):
+    """llama-3.2-vision LM: ``n_groups`` groups, each one cross-attention
+    block over the image tokens' K/V and ``cross_attn_every - 1`` dense
+    self-attention blocks. A cross block adds its attention through a
+    ``tanh(gate)``, the gate zero at init as in the reference (so a fresh
+    model's image path changes nothing), then an MLP. The image embeddings
+    (B, n_image_tokens, D) are a stub input, as in the reference: zeros
+    when none are given.
+
+    The decode cache holds each self block's K/V and each group's image
+    K/V, computed once by the prefill; a decode step appends to the
+    former in place. ``cache["len"]`` is a scalar: the grouped state has
+    no per-row append position, as in the reference."""
+
+    families = ("vlm",)
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random params in ``cfg.param_dtype`` from ``gen``, with the
+        reference's shapes, keys and init scales; every gate 0."""
+        cfg = self.cfg
+        dt = cfg.param_dtype
+        D, F_ = cfg.d_model, cfg.d_ff
+        G, E = vlm_layout(cfg)
+        ones = lambda *shape: torch.ones(shape, dtype=dt, device=self.device)
+        params = self._init_embedding(gen)
+        params["cross_blocks"] = {
+            "attn": A.init_attention(gen, cfg, dt, G),
+            "mlp": BL.init_mlp(gen, D, F_, dt, G),
+            "ln1": ones(G, D), "ln2": ones(G, D),
+            "gate": torch.zeros((G, 1), dtype=dt, device=self.device)}
+        params["self_blocks"] = {
+            "attn": A.init_attention(gen, cfg, dt, (G, E)),
+            "mlp": BL.init_mlp(gen, D, F_, dt, (G, E)),
+            "ln1": ones(G, E, D), "ln2": ones(G, E, D)}
+        return params
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        G, E = vlm_layout(cfg)
+        B, KV, hd = batch_size, cfg.n_kv_heads, cfg.hd
+        zeros = lambda *shape: torch.zeros(shape, dtype=cfg.dtype,
+                                           device=self.device)
+        return {"k": zeros(G, E, B, max_len, KV, hd),
+                "v": zeros(G, E, B, max_len, KV, hd),
+                "img_k": zeros(G, B, cfg.n_image_tokens, KV, hd),
+                "img_v": zeros(G, B, cfg.n_image_tokens, KV, hd),
+                "len": torch.zeros((), dtype=torch.int32, device=self.device)}
+
+    def _images(self, img_embeds, B: int) -> torch.Tensor:
+        """The image embeddings (B, n_image_tokens, D) in ``cfg.dtype`` on
+        this LM's device; zeros when ``img_embeds`` is None."""
+        cfg = self.cfg
+        if img_embeds is None:
+            return torch.zeros((B, cfg.n_image_tokens, cfg.d_model),
+                               dtype=cfg.dtype, device=self.device)
+        return torch.as_tensor(img_embeds, device=self.device).to(cfg.dtype)
+
+    def _img_kv(self, cross, img):
+        """A cross block's image K/V, each (B, n_image_tokens, KV, hd): the
+        embeddings through wk and wv, with no norm and no RoPE."""
+        return A.heads(img, cross["attn"]["wk"]), \
+            A.heads(img, cross["attn"]["wv"])
+
+    def _cross_block(self, x, blk, img_kv, cache=None):
+        """x + tanh(gate) * cross-attention, then x + MLP. The gate is cast
+        to x's dtype before the tanh, as in the reference. ``cache`` as
+        :func:`~repro_torch.models.attention.attention_sublayer` takes it
+        with ``kv_override``: None, or a decode step's image lengths."""
+        cfg = self.cfg
+        h, _ = A.attention_sublayer(rms_norm(x, blk["ln1"], cfg.norm_eps),
+                                    blk["attn"], cfg, None, cache=cache,
+                                    kv_override=img_kv)
+        x = x + torch.tanh(blk["gate"].to(x.dtype)) * h
+        return x + self._ffn(rms_norm(x, blk["ln2"], cfg.norm_eps), blk)
+
+    def forward(self, params, tokens, img_embeds=None) -> torch.Tensor:
+        """tokens (B, S) and image embeddings (B, n_image_tokens, D) or None
+        -> logits (B, S, V) in ``cfg.dtype``; differentiable as
+        :meth:`LM.forward` is. Under remat "full" each group (its cross
+        block and its self blocks) is one checkpoint, as in the
+        reference."""
+        cfg = self.cfg
+        _check_remat(cfg)
+        G, E = vlm_layout(cfg)
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        img = self._images(img_embeds, B)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device).expand(B, S)
+        rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+
+        def group(x, cross, selfs):
+            x = self._cross_block(x, cross, self._img_kv(cross, img))
+            for blk in _layers(selfs, E):
+                x = self._train_block(x, blk, rope)
+            return x
+
+        for cross, selfs in zip(_layers(params["cross_blocks"], G),
+                                _layers(params["self_blocks"], G)):
+            x = checkpoint(group, x, cross, selfs, use_reentrant=False) \
+                if cfg.remat == "full" else group(x, cross, selfs)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """:meth:`LM.loss` with ``batch.get("image_embeds")`` as the
+        image embeddings, as in the reference."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        logits = self.forward(params, tokens[:, :-1],
+                              batch.get("image_embeds"))
+        return _nll(logits, tokens[:, 1:])
+
+    def prefill(self, params, tokens, img_embeds=None,
+                max_len: Optional[int] = None, last_pos=None):
+        """Run the prompt (B, S) over the image embeddings (zeros when
+        None) and build the decode cache: each self block's K/V and each
+        group's image K/V. Returns (logits (B, 1, V), cache); ``last_pos``
+        as in :meth:`LM.prefill` (the cache then has (B,) lengths, which
+        :meth:`decode_step` refuses, as the reference's does)."""
+        cfg = self.cfg
+        G, E = vlm_layout(cfg)
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        max_len = max_len or S + 1
+        if max_len < S:
+            raise ValueError(f"max_len={max_len} is shorter than the "
+                             f"prompt ({S})")
+        img = self._images(img_embeds, B)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device).expand(B, S)
+        rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        cache = self.init_cache(B, max_len)
+        for g in range(G):
+            cross = _layer(params["cross_blocks"], g)
+            img_k, img_v = self._img_kv(cross, img)
+            cache["img_k"][g] = img_k
+            cache["img_v"][g] = img_v
+            x = self._cross_block(x, cross, (img_k, img_v))
+            selfs = _layer(params["self_blocks"], g)
+            for j in range(E):
+                x, (k, v) = self._dense_block(x, _layer(selfs, j), rope)
+                cache["k"][g, j, :, :S] = k
+                cache["v"][g, j, :, :S] = v
+        return self._prefill_logits(params, x, cache, last_pos)
+
+    def decode_step(self, params, cache, tokens):
+        """tokens (B, 1) -> (logits (B, 1, V), cache): each group's cross
+        block over its cached image K/V (B3, every row over all
+        n_image_tokens rows), then its self blocks, whose K/V rows are
+        written into the cache in place; the cache is returned with ``len
+        + 1``. ``cache["len"]`` must be a scalar."""
+        cfg = self.cfg
+        ln = cache["len"]
+        if ln.dim() == 1:
+            raise ValueError(
+                f"per-sequence cache lengths are not supported for family "
+                f"{cfg.family!r} (recurrent/grouped state has no per-row "
+                f"append position)")
+        G, E = vlm_layout(cfg)
+        x = self._embed(params, tokens)
+        B = x.shape[0]
+        rope = rope_cos_sin(ln.expand(B, 1), cfg.hd, cfg.rope_theta)
+        at, attend = A.decode_rows(ln, B, cache["k"].shape[3])
+        images = {"attend": torch.full((B,), cache["img_k"].shape[2],
+                                       dtype=torch.int32, device=self.device)}
+        for g in range(G):
+            x = self._cross_block(x, _layer(params["cross_blocks"], g),
+                                  (cache["img_k"][g], cache["img_v"][g]),
+                                  cache=images)
+            selfs = _layer(params["self_blocks"], g)
+            for j in range(E):
+                x, _ = self._dense_block(
+                    x, _layer(selfs, j), rope,
+                    cache={"k": cache["k"][g, j], "v": cache["v"][g, j],
+                           "at": at, "attend": attend})
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x), {**cache, "len": ln + 1}
+
+
 class HybridLM(LM):
     """zamba2 hybrid LM: Mamba2 blocks in ``n_groups`` groups of
     ``attn_every``, ONE shared attention+MLP block (its weights shared,
@@ -304,7 +519,7 @@ class HybridLM(LM):
     The decode cache holds each Mamba2 block's conv rows and SSM state and
     each group's K/V; a decode step updates them in place."""
 
-    family = "hybrid"
+    families = ("hybrid",)
 
     def _layout(self):
         return hybrid_layout(self.cfg)
@@ -312,19 +527,12 @@ class HybridLM(LM):
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random params in ``cfg.param_dtype`` from ``gen``, with the
         reference's shapes, keys and init scales."""
-        if gen.device != self.device:
-            raise ValueError(f"generator on {gen.device}, LM on {self.device}")
         cfg = self.cfg
         dt = cfg.param_dtype
-        D, V = cfg.d_model, cfg.vocab
+        D = cfg.d_model
         G, E, R = self._layout()
         ones = lambda *shape: torch.ones(shape, dtype=dt, device=self.device)
-        params: Dict[str, Any] = {
-            "embed": init_dense(gen, (V, D), dtype=dt),
-            "final_norm": ones(D),
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
+        params = self._init_embedding(gen)
         params["groups"] = {"m": BL.init_mamba2(gen, cfg, dt, (G, E)),
                             "ln": ones(G, E, D)}
         if R:
@@ -375,10 +583,7 @@ class HybridLM(LM):
         block and its Mamba2 blocks) and each remainder block is one
         checkpoint, as in the reference."""
         cfg = self.cfg
-        if cfg.remat not in ("full", "none"):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
-                f"remat 'dots'); use 'full' or 'none'")
+        _check_remat(cfg)
         G, E, R = self._layout()
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
@@ -440,16 +645,7 @@ class HybridLM(LM):
             x, st = self._mamba_block(x, _layer(params["rem"], r))
             cache["rem_conv"][r] = st["conv"]
             cache["rem_ssm"][r] = st["ssm"]
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if last_pos is None:
-            sel = x[:, -1:]
-            cache["len"] = torch.tensor(S, dtype=torch.int32,
-                                        device=self.device)
-        else:
-            last_pos = torch.as_tensor(last_pos, device=self.device).long()
-            sel = x[torch.arange(B, device=self.device), last_pos][:, None]
-            cache["len"] = (last_pos + 1).to(torch.int32)
-        return self._logits(params, sel), cache
+        return self._prefill_logits(params, x, cache, last_pos)
 
     def decode_step(self, params, cache, tokens):
         """tokens (B, 1) -> (logits (B, 1, V), cache), the cache updated in
@@ -504,23 +700,16 @@ class RwkvLM(LM):
     so leaves ``wkv`` at zero unless the length is a multiple of 64
     (ROADMAP C7): its decode continues what :meth:`forward` computes."""
 
-    family = "rwkv6"
+    families = ("rwkv6",)
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random params in ``cfg.param_dtype`` from ``gen``, with the
         reference's shapes, keys and init scales."""
-        if gen.device != self.device:
-            raise ValueError(f"generator on {gen.device}, LM on {self.device}")
         cfg = self.cfg
         dt = cfg.param_dtype
-        D, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+        D, L = cfg.d_model, cfg.n_layers
         ones = lambda *shape: torch.ones(shape, dtype=dt, device=self.device)
-        params: Dict[str, Any] = {
-            "embed": init_dense(gen, (V, D), dtype=dt),
-            "final_norm": ones(D),
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = init_dense(gen, (D, V), dtype=dt)
+        params = self._init_embedding(gen)
         params["blocks"] = {"tm": BL.init_rwkv6(gen, cfg, dt, (L,)),
                             "ln1": ones(L, D), "ln2": ones(L, D)}
         return params
@@ -556,10 +745,7 @@ class RwkvLM(LM):
         as :meth:`LM.forward` is. Under remat "full" each block is one
         checkpoint, as in the reference."""
         cfg = self.cfg
-        if cfg.remat not in ("full", "none"):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
-                f"remat 'dots'); use 'full' or 'none'")
+        _check_remat(cfg)
         x = self._embed(params, tokens)
         for blk in _layers(params["blocks"], cfg.n_layers):
             x = checkpoint(self._train_rwkv, x, blk, use_reentrant=False) \
@@ -585,16 +771,7 @@ class RwkvLM(LM):
             x, st = self._rwkv_block(x, _layer(blocks, i))
             for key in ("shift", "shift_ffn", "wkv"):
                 cache[key][i] = st[key]
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if last_pos is None:
-            sel = x[:, -1:]
-            cache["len"] = torch.tensor(S, dtype=torch.int32,
-                                        device=self.device)
-        else:
-            last_pos = torch.as_tensor(last_pos, device=self.device).long()
-            sel = x[torch.arange(B, device=self.device), last_pos][:, None]
-            cache["len"] = (last_pos + 1).to(torch.int32)
-        return self._logits(params, sel), cache
+        return self._prefill_logits(params, x, cache, last_pos)
 
     def decode_step(self, params, cache, tokens):
         """tokens (B, 1) -> (logits (B, 1, V), cache), the cache updated in
@@ -620,10 +797,11 @@ class RwkvLM(LM):
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
-    """The port's LM class for ``cfg.family`` (dense, moe, hybrid or
-    rwkv6)."""
-    classes = {cls.family: cls for cls in (LM, MoeLM, HybridLM, RwkvLM)}
+    """The port's LM class for ``cfg.family`` (dense, audio, moe, vlm,
+    hybrid or rwkv6)."""
+    classes = {fam: cls for cls in (LM, MoeLM, VlmLM, HybridLM, RwkvLM)
+               for fam in cls.families}
     if cfg.family not in classes:
-        raise ValueError(f"the port serves the dense, moe and hybrid "
-                         f"families and rwkv6, not {cfg.family!r}")
+        raise ValueError(f"the port serves the dense, audio, moe, vlm, "
+                         f"hybrid and rwkv6 families, not {cfg.family!r}")
     return classes[cfg.family](cfg, device=device)

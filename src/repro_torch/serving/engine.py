@@ -10,9 +10,11 @@ import torch
 from .. import resolve_device
 from ..models.lm import LM, serving_params
 
-# the families whose cache is K/V rows, with a per-row append position: the
-# reference's dense/audio/moe, less audio, which the port does not have
-KV_CACHE_FAMILIES = ("dense", "moe")
+# the families whose cache is K/V rows, with a per-row append position:
+# the reference's dense/audio/moe. The vlm family's grouped cache has none
+# (it serves uniform batches through generate, with zero images, as the
+# reference's engine does), nor has the recurrent state of hybrid and rwkv6
+KV_CACHE_FAMILIES = ("dense", "audio", "moe")
 
 
 class ServeEngine:

@@ -8,7 +8,11 @@ limits that hold the kernels on the card, and the fused-QKV case hands over
 strided views. The ptxas report of the ``hopper`` kernels fails the run on a
 stack frame, a spill or a serialised ``wgmma``. The ddp phase's payload
 check accepts the port's bucketed all-reduce on the CPU and rejects two
-planted faults: a bucket left unreduced and one element changed.
+planted faults: a bucket left unreduced and one element changed. The
+families phase's shapes (llama-3.2-vision's cross prefill over 1600 image
+keys and cross decode, musicgen-medium, starcoder2-3b) are kernel cases,
+the cross cases' planted faults are rejected, and its per-layer attention
+check rejects a fault dropping the last image key of one cross block.
 """
 
 import re
@@ -733,3 +737,113 @@ def test_tp_serving_run_masks_a_nic_kill_at_smoke_width():
         assert r["reconstruction_mismatches"] == 0
         assert (r["fallbacks"] >= 1) == (kill is not None)
         assert r["steps"] == {"admit": 4, "decode": 7}
+
+
+def test_families_cases_cover_the_new_shapes():
+    """B1 and B3 hold the families phase's shapes: llama-3.2-vision's self
+    and cross prefill (1600 image keys: 12.5 key tiles, the last partial)
+    and decode at full width, musicgen-medium's MHA at hd 64 and
+    starcoder2-3b's 12 query heads a K/V head at hd 128; the timed shapes
+    include the vlm cross prefill and cross decode."""
+    bf = torch.bfloat16
+    flash = {c[1:] for c in CS.flash_cases()}
+    decode = {c[0]: c[1:] for c in CS.decode_cases()}
+    lens = [n + CS.N_NEW // 2 for n in CS.PROMPT_LENS]
+    vlm = CS.vlm_config()
+    n_img = vlm.n_image_tokens
+    assert n_img == CS.VLM_IMAGE_TOKENS and n_img % 128 == 64
+    H, KV, hd = vlm.n_heads, vlm.n_kv_heads, vlm.hd
+    assert (4, H, KV, 512, 512, hd, bf, True, "contiguous") in flash
+    assert (4, H, KV, 512, n_img, hd, bf, False, "contiguous") in flash
+    assert decode["vlm cross decode"] == (4, H, KV, n_img, hd, bf,
+                                          [n_img] * 4)
+    assert decode["vlm serving"] == (4, H, KV, CS.SERVE_MAX_LEN, hd, bf,
+                                     lens)
+    for arch, label, G, d in ((CS.musicgen_medium, "musicgen", 1, 64),
+                              (CS.starcoder2_3b, "starcoder2-3b", 12, 128)):
+        cfg = arch.config()
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        assert (H // KV, cfg.hd) == (G, d)
+        assert (4, H, KV, 512, 512, d, bf, True, "contiguous") in flash
+        assert decode[f"{label} serving"] == (4, H, KV, CS.SERVE_MAX_LEN, d,
+                                              bf, lens)
+    smoke = CS.llama32_vision_90b.smoke_config()
+    assert (2, smoke.n_heads, smoke.n_kv_heads, 12, smoke.n_image_tokens,
+            smoke.hd, bf, False, "contiguous") in flash
+    assert ("vlm cross prefill", 4, 64, 8, 512, n_img, 128) \
+        in CS.FLASH_CROSS_TIMED
+    assert any(t[0] == "vlm cross decode" and t[1:6] == (4, 64, 8, n_img, 128)
+               for t in CS.DECODE_TIMED)
+
+
+def test_vlm_cross_faults_are_rejected():
+    """The planted faults of the cross cases' plain versions, on the CPU:
+    the smoke cross prefill (one key of 16 dropped) and the full-width
+    cross decode (the last of 1600 image rows, or a 64-row chunk,
+    dropped) are each rejected by the kernel limits."""
+    gen = torch.Generator().manual_seed(0)
+    label, B, H, KV, Sq, Sk, hd, dt, causal, layout = next(
+        c for c in CS.flash_cases() if c[0] == "vlm smoke cross")
+    q, k, v = CS.flash_inputs(gen, B, H, KV, Sq, Sk, hd, dt, layout, "cpu")
+    o_ref, _ = CS.FR.flash_attention_ref(q, k, v, causal=causal)
+    faults = CS.flash_faults(q, k, v, causal)
+    assert set(faults) == {"one key off"}
+    assert not CS.agreement("flash_attention", faults["one key off"],
+                            o_ref)[0]
+    _, B, H, KV, S, hd, dt, lens = DECODE_CASES["vlm cross decode"]
+    q, kc, vc = CS.rand_like_cases(gen, [(B, H, hd), (B, S, KV, hd),
+                                         (B, S, KV, hd)], dt, "cpu")
+    ln = torch.tensor(lens, dtype=torch.int32)
+    o_ref = CS.DR.decode_attention_ref(q, kc, vc, ln)
+    faults = CS.decode_faults(q, kc, vc, ln)
+    assert set(faults) == {"length off by one", "64-row chunk dropped"}
+    for fault, planted in faults.items():
+        caught, _, rel = CS.agreement("decode_attention", planted, o_ref)
+        assert not caught, fault
+
+
+def test_vlm_memory_reckoning_is_ten_layers_in_bf16():
+    cfg = CS.vlm_config()
+    assert (cfg.n_layers, cfg.param_dtype) == (10, torch.bfloat16)
+    assert CS.vlm_layout(cfg) == (2, 4)
+    assert round(cfg.param_count() / 1e9, 2) == 10.96
+    assert round(CS.param_gb(cfg), 1) == 21.9
+    assert CS.param_gb(cfg) + CS.VLM_HEADROOM_GB < 80
+    whole = CS.llama32_vision_90b.config(param_dtype=torch.bfloat16)
+    assert CS.param_gb(whole) > 80
+
+
+def test_vlm_attention_check_rejects_a_last_key_fault():
+    """At smoke width on the CPU (where the wrappers are the plain
+    versions): each layer's attention, self and cross, on the recorded
+    inputs of a prefill over images and 4 decode steps reads 0; a planted
+    fault dropping the last image key of one cross block is rejected in
+    that layer alone, in the decode calls too."""
+    cfg = CS.llama32_vision_90b.smoke_config()
+    model = CS.build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    params["cross_blocks"]["gate"].fill_(CS.VLM_GATE)
+    engine = CS.ServeEngine(model, params, max_len=40, device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(1, cfg.vocab, size=(2, 30)),
+             "image_embeds": rng.randn(2, cfg.n_image_tokens, cfg.d_model)}
+    prefill = CS.make_prefill_step(model, max_len=40)
+    records = []
+    with CS.recording_attention(records):
+        _, cache = prefill(engine.params, batch)
+        for _ in range(4):
+            _, cache = model.decode_step(engine.params, cache,
+                                         torch.ones(2, 1, dtype=torch.long))
+    L = cfg.n_layers
+    assert len(records) == 5 * L
+    G, E = CS.vlm_layout(cfg)
+    cross = [g * (E + 1) for g in range(G)]
+    assert [i for i, r in enumerate(records[:L]) if r[4] is not None] == cross
+    assert CS.moe_attention_layers(records, cfg) == [0.0] * L
+    faults = (CS.last_key_dropped, CS.one_row_short)
+    faulted = CS.moe_attention_layers(records, cfg, cross[-1], faults)
+    assert faulted[cross[-1]] > CS.MOE_ATTN_REL_L2
+    assert all(r == 0.0 for i, r in enumerate(faulted) if i != cross[-1])
+    decode_only = records[L:]
+    assert CS.moe_attention_layers(decode_only, cfg, cross[-1],
+                                   faults)[cross[-1]] > CS.MOE_ATTN_REL_L2

@@ -513,5 +513,7 @@ def test_recurrent_family_refusals(ref_params):
                          n_slots=2, prefill_len=4)
     with pytest.raises(ValueError, match="3 tokens or more"):
         tm.prefill(tp, prompts[:, :2], max_len=MAX_LEN)
-    with pytest.raises(ValueError, match="dense, moe and hybrid"):
-        t_build(t_zamba.smoke_config(family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="dense, audio, moe, vlm, hybrid "
+                                         "and rwkv6 families"):
+        t_build(dataclasses.replace(t_zamba.smoke_config(), family="encoder"),
+                device="cpu")

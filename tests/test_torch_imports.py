@@ -1,5 +1,5 @@
-"""The port stands alone: importing it, serving (dense, moe, hybrid and
-rwkv6, and moe over its own fabric), taking a train step and a
+"""The port stands alone: importing it, serving (dense, audio, moe, vlm,
+hybrid and rwkv6, and moe over its own fabric), taking a train step and a
 data-parallel step over its own fabric on the CPU, and running campaign
 cells (``repro_torch.scenarios``, with ``repro_torch.policy`` imported; a
 ``serving`` cell among them) loads neither ``jax`` nor any module of
@@ -21,9 +21,11 @@ import sys
 import numpy as np
 import torch
 import repro_torch
-from repro_torch.configs import (gpt2_124m, llama4_maverick, rwkv6_3b,
+from repro_torch.configs import (gpt2_124m, llama32_vision_90b,
+                                 llama4_maverick, musicgen_medium, rwkv6_3b,
                                  yi_6b, zamba2_1p2b)
-from repro_torch.launch import make_train_step
+from repro_torch.launch import (make_decode_step, make_prefill_step,
+                                make_train_step)
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.serving import RequestScheduler, ServeEngine, TPServeEngine
@@ -58,6 +60,24 @@ rmodel = build_model(rcfg, device="cpu")
 reng = ServeEngine(rmodel, rmodel.init(torch.Generator().manual_seed(0)),
                    max_len=16, device="cpu")
 out = reng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
+assert out.shape == (2, 7), out.shape
+vcfg = llama32_vision_90b.smoke_config()
+vmodel = build_model(vcfg, device="cpu")
+vparams = vmodel.init(torch.Generator().manual_seed(0))
+veng = ServeEngine(vmodel, vparams, max_len=16, device="cpu")
+out = veng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3)
+assert out.shape == (2, 7), out.shape
+img = np.random.RandomState(0).randn(2, vcfg.n_image_tokens, vcfg.d_model)
+logits, cache = make_prefill_step(vmodel)(
+    vparams, {"tokens": out[:, :4], "image_embeds": img})
+logits, cache = make_decode_step(vmodel)(vparams, cache, out[:, 4:5])
+assert logits.shape == (2, 1, vcfg.vocab), logits.shape
+acfg = musicgen_medium.smoke_config(n_layers=1)
+amodel = build_model(acfg, device="cpu")
+aeng = ServeEngine(amodel, amodel.init(torch.Generator().manual_seed(0)),
+                   max_len=16, device="cpu")
+out = aeng.generate(np.arange(1, 9, dtype=np.int32).reshape(2, 4), 3,
+                    prompt_lens=[4, 2])
 assert out.shape == (2, 7), out.shape
 from repro_torch.collectives import build_world
 mcfg = llama4_maverick.smoke_config(n_layers=1)

@@ -88,8 +88,13 @@ def test_config_matches_reference_field_by_field(which):
 
 
 def test_config_registry_lists_only_ported_archs():
-    with pytest.raises(KeyError, match="supports"):
-        t_configs.get_config("llama-3.2-vision-90b")
+    """Every arch of the reference is ported: the port's registry lists
+    the reference's 11 archs in its order, and refuses an unknown one."""
+    from repro import configs as j_configs
+    assert t_configs.list_archs() == j_configs.list_archs()
+    assert len(t_configs.list_archs()) == 11
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_configs.get_config("llama-3.2-vision-1b")
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +205,11 @@ def test_bf16_numpy_leaves_load_bit_exact(ref_params):
 
 
 def test_other_families_and_devices_raise():
-    with pytest.raises(ValueError, match="dense, moe and hybrid"):
-        t_build(t_yi.smoke_config(family="vlm"), device="cpu")
+    # a family that neither package has
+    with pytest.raises(ValueError, match="dense, audio, moe, vlm, hybrid "
+                                         "and rwkv6 families"):
+        t_build(dataclasses.replace(t_yi.smoke_config(), family="encoder"),
+                device="cpu")
     with pytest.raises(ValueError, match="cuda"):
         t_build(t_yi.smoke_config(), device="meta")
 
