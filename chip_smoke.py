@@ -85,7 +85,21 @@ and read just after, that each went through the kernels:
   ``generate`` (uniform and ragged; musicgen also ``RequestScheduler``
   over ``TPServeEngine(world=None)``) with exactly L flash-attention
   launches a prefill and L decode-attention launches a decode step, the
-  serving logits kernel path against plain path within 2e-2.
+  serving logits kernel path against plain path within 2e-2;
+* the launch phase (``repro_torch.launch``): the hook dry-run's
+  readiness reports of kimi-k2-1t-a32b and starcoder2-15b at full depth
+  (62059 buckets / 63 segments, 1312 / 42); each step's peak memory on
+  the card above what it started with, against the meta-device dry-run's
+  temp bytes for the same step on a (1, 1) mesh, within 10 % or 64 MiB:
+  gpt2-124m's train step (8 x 1024) under remat none, full and dots, with
+  exactly 12 / 24 / 24 flash-attention launches and 12 of each backward
+  kernel a step, yi-6b's prefill (4 x 512) and decode step (4 rows, a
+  544-row cache), zamba2-1.2b's and rwkv6-3b's prefill (4 x 512), with
+  exact launches; "dots" giving "full"'s loss and gradients bit for bit,
+  and the peaks ordered none > dots > full; gpt2-124m's params
+  distributed by their ``param_specs`` over a one-rank NCCL group, each
+  local shard equal to its param. The moe and families phases start
+  only with the dry-run's bytes a device of their prefill step free.
 
 It holds the kernel path against the plain path at full width (logits
 while serving, loss and gradients while training; for zamba2 and rwkv6
@@ -123,6 +137,9 @@ the train step, and prints:
   ms and idle share, peak memory, launches and the kernel-vs-plain
   readings (llama-3.2-vision: each layer's attention error, the planted
   fault's, how far the images move the logits), and the phase's wall s;
+* a ``{"launch": ...}`` line: the anchors, each memory cell's predicted,
+  measured and ``MemoryLog``-on-the-card bytes, remat's bitwise
+  equality, launches and peaks, the DTensor check, the phase's wall s;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
@@ -146,6 +163,7 @@ of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -179,9 +197,15 @@ from repro_torch.kernels.rwkv6_scan import ops as RO  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as RR  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as SO  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as SR  # noqa: E402
+from repro_torch import configs as CC  # noqa: E402
 from repro_torch.launch import (make_decode_step,  # noqa: E402
                                 make_prefill_step, make_train_step,
                                 value_and_grad)
+from repro_torch.launch import dryrun as DRY  # noqa: E402
+from repro_torch.launch import sharding as SHD  # noqa: E402
+from repro_torch.launch.hook_dryrun import readiness_report  # noqa: E402
+from repro_torch.launch.mesh import (device_mesh,  # noqa: E402
+                                     make_debug_mesh)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -343,9 +367,12 @@ SCHED_SLOTS, SCHED_REQUESTS, SCHED_PREFILL = 4, 8, 256
 
 # llama4-maverick at full width on one card: MOE_LAYERS of its 48 layers
 # with bf16 params, 34.4 B params or 68.8 GB (3 layers would be 101 GB).
-# The phase starts only with the params and MOE_HEADROOM_GB free (the
-# caches, the activations, the expert buffers, the float32 draw of one
-# embedding-sized leaf at init).
+# The phase starts only with the larger of the dry-run's set-up peak and
+# its bytes a device of the B=4 x 512 prefill step free (``memory_check``),
+# and the set-up's peak on the card is held to the traced one;
+# MOE_HEADROOM_GB is the hand-set reckoning that check replaced (the
+# params and 4 GB for the caches, the activations, the expert buffers,
+# the float32 draw of one embedding-sized leaf at init), printed beside it.
 MOE_LAYERS = 2
 MOE_HEADROOM_GB = 4.0
 # The moe path, kernel against plain: the whole-path bf16 logits are
@@ -374,14 +401,17 @@ TP_FULL_NIC = "host0/mlx5_0"
 
 # The families phase. (a) llama-3.2-vision at full width: VLM_LAYERS of
 # its 100 layers (2 groups of a cross block and 4 self blocks; the whole
-# model is 181 GB in bf16), bf16 params, 21.9 GB; the float32 draw of the
-# largest stacked leaf (the self blocks' w_gate, 7.5 GB) and the
-# activations need VLM_HEADROOM_GB more. Each cross block's gate is set to
-# VLM_GATE: the reference's zero gate would leave the image path no effect
-# (ROADMAP C11). Its kernel path against its plain path: each layer's
-# attention sublayer (self and cross) within MOE_ATTN_REL_L2, which a
-# planted fault dropping the last image key of one cross block must exceed
-# (dropping one of 1600 keys moves the output by ~1/sqrt(1600) = 0.025).
+# model is 181 GB in bf16), bf16 params, 21.9 GB; the phase starts only
+# with the dry-run's need free, as the moe phase's (its set-up peak rules:
+# the float32 draw of the largest stacked leaf, the self blocks' w_gate,
+# 7.5 GB, which the step does not hold). VLM_HEADROOM_GB is the hand-set
+# reckoning that check replaced, printed beside it. Each cross block's
+# gate is set to VLM_GATE: the reference's zero gate would leave the
+# image path no effect (ROADMAP C11). Its kernel path against its plain
+# path: each layer's attention sublayer (self and cross) within
+# MOE_ATTN_REL_L2, which a planted fault dropping the last image key of
+# one cross block must exceed (dropping one of 1600 keys moves the output
+# by ~1/sqrt(1600) = 0.025).
 # (b) musicgen-medium (48 layers) and starcoder2-3b (30 layers) whole.
 VLM_LAYERS = 10
 VLM_IMAGE_TOKENS = 1600      # llama32_vision_90b.config().n_image_tokens
@@ -2504,19 +2534,48 @@ def param_gb(cfg) -> float:
 
 
 def memory_check(cfg, headroom_gb: float, label: str) -> tuple:
-    """(free, total) GB on the card with nothing of the earlier phases
-    resident; fails unless the free memory holds the params and
-    ``headroom_gb``."""
+    """(free, total GB on the card with nothing of the earlier phases
+    resident, the dry-run's GB): ``setup_gb`` the meta trace of the
+    phase's set-up (``model.init`` and serving's casts), ``prefill_gb``
+    the bytes a device of its B=4 x 512 prefill step over those params,
+    ``need_gb`` the larger; fails unless the free memory holds ``need_gb``.
+    The hand-set reckoning it replaced, the params and ``headroom_gb``, is
+    printed beside it."""
     gc.collect()
     torch.cuda.empty_cache()
     free, total = (b / 1e9 for b in torch.cuda.mem_get_info())
-    need = param_gb(cfg) + headroom_gb
+    init = DRY._init_pass(cfg)
+    mem = DRY._trace_pass(cfg, CC.Shape("prefill", 512, 4, "prefill"),
+                          make_debug_mesh(1, 1),
+                          params=init["params"])["memory"]
+    dry = {"setup_gb": init["peak_bytes"] / 1e9,
+           "prefill_gb": (mem["argument_size_in_bytes"]
+                          + mem["temp_size_in_bytes"]) / 1e9}
+    dry["need_gb"] = max(dry["setup_gb"], dry["prefill_gb"])
     print(f"{label}: {free:.2f} of {total:.2f} GB free on the card; the "
-          f"{cfg.n_layers}-layer model needs {param_gb(cfg):.2f} GB of "
-          f"params + {headroom_gb} GB")
-    check(free >= need, f"{label}: {free:.2f} GB free on the card, the "
-                        f"{cfg.n_layers}-layer model needs {need:.2f} GB")
-    return free, total
+          f"{cfg.n_layers}-layer model needs {dry['need_gb']:.2f} GB by the "
+          f"dry-run (set-up {dry['setup_gb']:.2f}, at "
+          f"{init['peak_by_op'][:2]}; prefill step {dry['prefill_gb']:.2f}; "
+          f"the hand-set reckoning: {param_gb(cfg):.2f} GB of params + "
+          f"{headroom_gb} GB)")
+    check(free >= dry["need_gb"],
+          f"{label}: {free:.2f} GB free on the card, the {cfg.n_layers}-"
+          f"layer model needs {dry['need_gb']:.2f} GB")
+    return free, total, dry
+
+
+def setup_agrees(label: str, dry: dict, base: int) -> float:
+    """The set-up's peak GB on the card above ``base`` (what was allocated
+    before it), held to the dry-run's set-up trace by
+    :func:`memory_agrees`."""
+    measured = torch.cuda.max_memory_allocated() - base
+    predicted = int(round(dry["setup_gb"] * 1e9))
+    ok, limit = memory_agrees(predicted, measured)
+    print(f"{label}: set-up peak {measured / 1e9:.4f} GB above its base, "
+          f"the dry-run's {predicted / 1e9:.4f} (limit {limit / 1e9:.4f})")
+    check(ok, f"{label}: the set-up peaked at {measured} bytes above its "
+              f"base, the dry-run traced {predicted} (limit {limit:.0f})")
+    return measured / 1e9
 
 
 @contextmanager
@@ -2626,7 +2685,8 @@ def moe(device, card):
                                      (kimi_k2_1t, [16, 5, 11])))
     cfg = moe_config()
     L, V = cfg.n_layers, cfg.vocab
-    free_gb, total_gb = memory_check(cfg, MOE_HEADROOM_GB, "moe")
+    free_gb, total_gb, dry = memory_check(cfg, MOE_HEADROOM_GB, "moe")
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=device)
@@ -2636,6 +2696,7 @@ def moe(device, card):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    setup_gb = setup_agrees("moe", dry, base)
     print(f"setup: llama4-maverick at full width, {L} of 48 layers "
           f"({cfg.param_count() / 1e9:.3f} B params, {param_gb(cfg):.2f} "
           f"GB in bf16) initialised in {init_s:.1f} s; set-up peak "
@@ -2673,6 +2734,9 @@ def moe(device, card):
         print(f"llama4 {path} launches: {n}")
         check(n == want, f"llama4 {path}: launches {n}, want exactly {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"moe: peak {peak_gb:.2f} GB (set-up {setup_peak_gb:.2f}) beside "
+          f"the dry-run's {dry['need_gb']:.2f} GB and the hand-set "
+          f"{param_gb(cfg) + MOE_HEADROOM_GB:.2f} GB")
     uniform, ragged = out["generate uniform"], out["generate ragged"]
     for name, toks in (("uniform", uniform), ("ragged", ragged)):
         check(toks.shape == (4, 512 + N_NEW)
@@ -2743,6 +2807,10 @@ def moe(device, card):
         "scheduler_tokens_per_s": n_sched_tokens / seconds["scheduler"],
         "scheduler_decode_steps": sched.decode_steps,
         "peak_memory_gb": peak_gb, "setup_peak_memory_gb": setup_peak_gb,
+        "setup_above_base_gb": setup_gb, "dryrun_setup_gb": dry["setup_gb"],
+        "dryrun_prefill_gb": dry["prefill_gb"],
+        "dryrun_need_gb": dry["need_gb"],
+        "hand_set_need_gb": param_gb(cfg) + MOE_HEADROOM_GB,
         "whole_path_logits_rel_l2": whole, "argmax_agreement": agree,
         "top1_expert_differs_share": flips,
         "attention_layer_rel_l2": per_layer,
@@ -3795,7 +3863,8 @@ def vlm_full_width(device, card) -> tuple:
     check(cfg.n_image_tokens == VLM_IMAGE_TOKENS, f"config {cfg}")
     L, V = cfg.n_layers, cfg.vocab
     G, E = vlm_layout(cfg)
-    free_gb, total_gb = memory_check(cfg, VLM_HEADROOM_GB, "vlm")
+    free_gb, total_gb, dry = memory_check(cfg, VLM_HEADROOM_GB, "vlm")
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=device)
@@ -3806,6 +3875,7 @@ def vlm_full_width(device, card) -> tuple:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    setup_gb = setup_agrees("vlm", dry, base)
     print(f"setup: llama-3.2-vision at full width, {L} of 100 layers ({G} "
           f"groups of a cross block and {E} self blocks; "
           f"{cfg.param_count() / 1e9:.3f} B params, {param_gb(cfg):.2f} GB "
@@ -3864,6 +3934,9 @@ def vlm_full_width(device, card) -> tuple:
                           step_launches(L, 1, N_NEW), step_masks["prefill"],
                           lambda: engine.generate(prompts, N_NEW))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"vlm: peak {peak_gb:.2f} GB (set-up {setup_peak_gb:.2f}) beside "
+          f"the dry-run's {dry['need_gb']:.2f} GB and the hand-set "
+          f"{param_gb(cfg) + VLM_HEADROOM_GB:.2f} GB")
     check(with_images.shape == (4, N_NEW)
           and ((with_images >= 0) & (with_images < V)).all(),
           f"vlm tokens with images {with_images.shape}")
@@ -3952,6 +4025,10 @@ def vlm_full_width(device, card) -> tuple:
         "generate_tokens_per_s": 4 * N_NEW / seconds["generate (zero images)"],
         "decode_tokens_per_s": 4 / (decode_ms / 1e3),
         "peak_memory_gb": peak_gb, "setup_peak_memory_gb": setup_peak_gb,
+        "setup_above_base_gb": setup_gb, "dryrun_setup_gb": dry["setup_gb"],
+        "dryrun_prefill_gb": dry["prefill_gb"],
+        "dryrun_need_gb": dry["need_gb"],
+        "hand_set_need_gb": param_gb(cfg) + VLM_HEADROOM_GB,
         "image_effect_logits_rel_l2": image_effect,
         "image_changes_tokens_share": differ,
         "whole_path_logits_rel_l2": whole, "argmax_agreement": agree,
@@ -4101,6 +4178,270 @@ def families(device, card) -> tuple:
     line["wall_s"] = time.perf_counter() - t0
     print(f"families phase: {line['wall_s']:.1f} s")
     return launches, {"families": line}
+
+
+# ---------------------------------------------------------------------------
+# the launch phase: the launch tooling and remat "dots" on the card
+# ---------------------------------------------------------------------------
+
+# (a) the hook dry-run's anchors at full depth, 64 MiB buckets of 1 MiB
+# chunks over 8 ranks: (buckets, segments), the reference's numbers
+LAUNCH_ANCHORS = {"kimi-k2-1t-a32b": (62059, 63),
+                  "starcoder2-15b": (1312, 42)}
+# (b) the dry-run's temp bytes of a step against the card's peak over the
+# step's own allocations: within 10 % or 64 KiB, whichever is larger (the
+# 10 % rules at every step the phase measures, yi-6b's 0.7 MiB decode
+# included; the floor keeps a step of a few blocks from failing on the
+# allocator's rounding)
+MEM_REL, MEM_ABS = 0.10, 64 << 10
+LAUNCH_B, LAUNCH_S = 4, 512
+REMATS = ("none", "full", "dots")
+# one prefill step's exact launches: yi-6b a B1 a layer, zamba2-1.2b a B4
+# a Mamba2 block and a B1 a group, rwkv6-3b a B5 a block
+LAUNCH_PREFILL = {"yi-6b": {"flash_attention": 32},
+                  "zamba2-1.2b": {"ssd_scan": 38, "flash_attention": 6},
+                  "rwkv6-3b": {"rwkv6_scan": 32}}
+
+
+def memory_agrees(predicted: int, measured: int) -> tuple:
+    """(within the limit, the limit in bytes) of a predicted step peak."""
+    limit = max(MEM_REL * measured, MEM_ABS)
+    return abs(predicted - measured) <= limit, limit
+
+
+def remat_step_launches(remat: str, L: int) -> dict:
+    """Exact launches of one train step of an L-layer dense model: B1 once
+    a layer, again in the backward under "full" and "dots" (the attention
+    kernel's output is recomputed, not kept); B2a and B2b once a layer."""
+    want = {n: 0 for n in KERNELS + PLAIN}
+    want.update(flash_attention=L if remat == "none" else 2 * L,
+                flash_bwd_dq=L, flash_bwd_dkv=L)
+    return want
+
+
+def meta_like(tree):
+    """``tree`` with every leaf a meta tensor of its shape and dtype."""
+    return unflatten((p, torch.empty_like(t, device="meta"))
+                     for p, t in flatten(tree))
+
+
+def step_peak(run, args) -> tuple:
+    """(the step's peak bytes above what was allocated before it, its
+    MemoryLog on the card): a warm-up call whose results are freed, then
+    one call between ``reset_peak_memory_stats`` and
+    ``max_memory_allocated``, then one under a MemoryLog (registering
+    ``args``' tensors) for the log's own reading of the same step."""
+    out = run()
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    log = DRY.MemoryLog()
+    log.register([t for _, t in flatten(args) if torch.is_tensor(t)])
+    with log:
+        out = run()
+        torch.cuda.synchronize()
+    del out
+    return peak, log
+
+
+def memory_cell(label, cfg, shape, run, args, params, opt_cfg=None) -> dict:
+    """One (b) cell: the dry-run's temp bytes of ``shape``'s step on a
+    one-card mesh, traced on meta over the exact params the card runs,
+    against the card's peak; fails outside :func:`memory_agrees`."""
+    traced = DRY._trace_pass(cfg, shape, make_debug_mesh(1, 1), opt_cfg,
+                             params=meta_like(params))
+    predicted = traced["memory"]["temp_size_in_bytes"]
+    measured, log = step_peak(run, args)
+    card_log, card_ops = log.peak(), log.breakdown()
+    ok, limit = memory_agrees(predicted, measured)
+    cell = {"cell": label, "predicted_bytes": predicted,
+            "measured_bytes": measured, "card_log_bytes": card_log,
+            "rel_err": (predicted - measured) / measured,
+            "limit_bytes": int(limit), "trace_s": traced["trace_s"],
+            "peak_by_op": traced["peak_by_op"], "card_peak_by_op": card_ops}
+    print(f"launch memory {label}: predicted {predicted / 2**20:.1f} MiB, "
+          f"measured {measured / 2**20:.1f} MiB (the MemoryLog on the card "
+          f"{card_log / 2**20:.1f}), limit {limit / 2**20:.1f} MiB; at the "
+          f"predicted peak (op, bytes, allocations): {traced['peak_by_op']}; "
+          f"at the card log's: {card_ops}")
+    check(ok, f"launch memory {label}: the dry-run predicts {predicted} "
+              f"bytes, the card's step peaked at {measured} (limit "
+              f"{limit:.0f})")
+    return cell
+
+
+def launch_remat(device) -> tuple:
+    """(b) and (c) on gpt2-124m at full width, 8 x 1024 tokens: the train
+    step's memory under each remat against the dry-run's; the loss and
+    every gradient under "dots" equal "full"'s bit for bit; each step's
+    exact launches; the peaks ordered none > dots > full."""
+    cells, launches, peaks, grads = [], {}, {}, {}
+    base = gpt2_124m.config()
+    L = base.n_layers
+    params = build_model(base, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+    opt_cfg = AdamWConfig(lr=6e-4, warmup_steps=2, total_steps=10)
+    opt = adamw_init(params, opt_cfg)
+    tokens = torch.randint(0, base.vocab, (TRAIN_B, TRAIN_S + 1),
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1), device=device,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens}
+    shape = CC.Shape("gpt2 train", TRAIN_S, TRAIN_B, "train")
+    for remat in REMATS:
+        cfg = dataclasses.replace(base, remat=remat)
+        model = build_model(cfg, device=device)
+        step = make_train_step(model, opt_cfg)
+        zero_counts()
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        one = read_counts()
+        del out
+        want = remat_step_launches(remat, L)
+        check(one == want, f"launch: a {remat} train step launched {one}, "
+                           f"want exactly {want}")
+        cell = memory_cell(f"gpt2-124m train {remat}", cfg, shape,
+                           lambda: step(params, opt, batch),
+                           {"p": params, "o": opt, "b": batch}, params,
+                           opt_cfg)
+        launches[remat] = read_counts()   # the step above and 3 more
+        check(launches[remat] == {n: 4 * c for n, c in want.items()},
+              f"launch: 4 {remat} train steps launched {launches[remat]}")
+        cells.append(cell)
+        peaks[remat] = cell["measured_bytes"]
+        if remat != "none":
+            grads[remat] = value_and_grad(model, params, batch)
+    (loss_f, g_f), (loss_d, g_d) = grads["full"], grads["dots"]
+    same = bool(torch.equal(loss_f, loss_d)) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(flatten(g_f),
+                                                      flatten(g_d)))
+    check(same, "launch: remat dots's loss or gradients differ from full's")
+    check(peaks["none"] > peaks["dots"] > peaks["full"],
+          f"launch: train-step peaks {peaks} are not ordered none > dots > "
+          f"full")
+    return cells, launches, {"dots_equals_full_bitwise": same,
+                             "peak_bytes": peaks,
+                             "launches_per_step": {
+                                 r: {n: c // 4 for n, c in launches[r].items()
+                                     if c} for r in REMATS}}
+
+
+def launch_serving_cells(device) -> tuple:
+    """(b) for yi-6b prefill (B=4 x 512) and decode (one step at B=4 with
+    a 544-row cache), zamba2-1.2b and rwkv6-3b prefill (B=4 x 512), at
+    full width with bf16 params: each step's memory against the dry-run's,
+    with its launches counted."""
+    cells, launches = [], {}
+    gen = np.random.RandomState(7)
+    for label, mod in (("yi-6b", yi_6b), ("zamba2-1.2b", zamba2_1p2b),
+                       ("rwkv6-3b", rwkv6_3b)):
+        cfg = mod.config(param_dtype=torch.bfloat16)
+        model = build_model(cfg, device=device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        tokens = torch.as_tensor(gen.randint(1, cfg.vocab, (LAUNCH_B,
+                                                            LAUNCH_S)),
+                                 dtype=torch.int32, device=device)
+        prefill = make_prefill_step(model)
+        zero_counts()
+        cells.append(memory_cell(
+            f"{label} prefill", cfg,
+            CC.Shape("prefill", LAUNCH_S, LAUNCH_B, "prefill"),
+            lambda: prefill(params, {"tokens": tokens}),
+            {"p": params, "t": tokens}, params))
+        n = launches[f"launch {label} prefill (3 steps)"] = read_counts()
+        want = {k: 3 * c for k, c in LAUNCH_PREFILL[label].items()}
+        check(n == dict({k: 0 for k in n}, **want),
+              f"launch: 3 {label} prefill steps launched {n}, want {want}")
+        if label == "yi-6b":
+            # the meta branch sizes B3's workspace by decode.cu's formula
+            for shape in ((4, 32, 4, SERVE_MAX_LEN, 128),
+                          (4, 64, 8, VLM_IMAGE_TOKENS, 128),
+                          (4, 24, 2, SERVE_MAX_LEN, 128),
+                          (4, 32, 32, SERVE_MAX_LEN, 64)):
+                check(DO.workspace_floats(*shape)
+                      == DO._workspace_floats(*shape),
+                      f"launch: B3's workspace at {shape}: the meta "
+                      f"branch's {DO.workspace_floats(*shape)} floats, "
+                      f"the library's {DO._workspace_floats(*shape)}")
+            _, cache = make_prefill_step(model, max_len=SERVE_MAX_LEN)(
+                params, {"tokens": tokens})
+            decode = make_decode_step(model)
+            new = tokens[:, -1:]
+            zero_counts()
+            cells.append(memory_cell(
+                f"{label} decode", cfg,
+                CC.Shape("decode", SERVE_MAX_LEN, LAUNCH_B, "decode"),
+                lambda: decode(params, cache, new)[0],
+                {"p": params, "c": cache, "t": new}, params))
+            n = launches[f"launch {label} decode (3 steps)"] = read_counts()
+            want = {"decode_attention": 3 * cfg.n_layers}
+            check(n == dict({k: 0 for k in n}, **want),
+                  f"launch: 3 {label} decode steps launched {n}")
+            del cache
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cells, launches
+
+
+def launch_dtensor(device) -> dict:
+    """(d) gpt2-124m's params distributed by their ``param_specs`` over a
+    one-rank NCCL group (``dist.HashStore``: no port, no network) on a
+    (1, 1) device mesh; each local shard equals its param bit for bit."""
+    import torch.distributed as dist
+    cfg = gpt2_124m.config()
+    params = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+    mesh = make_debug_mesh(1, 1)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=device)
+    try:
+        dmesh = device_mesh(mesh, "cuda")
+        specs = SHD.param_specs(cfg, params, mesh)
+        dt = SHD.distribute(params, specs, dmesh)
+        equal = all(torch.equal(d.to_local(), p) for (_, d), (_, p) in
+                    zip(flatten(dt), flatten(params)))
+        n = len(flatten(dt))
+    finally:
+        dist.destroy_process_group()
+    check(equal, "launch: a DTensor's local shard differs from its param")
+    return {"leaves": n, "local_shards_equal": equal,
+            "mesh": dict(mesh.shape)}
+
+
+def launch(device, card) -> tuple:
+    """The launch phase: (a) the hook dry-run's anchors; (b) each step's
+    memory, the dry-run's prediction against the card; (c) remat "dots"
+    on gpt2-124m; (d) DTensor shards on a one-rank group. Returns
+    (launches by path, the launch line)."""
+    t0 = time.perf_counter()
+    anchors = {}
+    for arch, want in LAUNCH_ANCHORS.items():
+        r = readiness_report(arch)
+        anchors[arch] = {"buckets": r["n_buckets"],
+                         "segments": r["n_segments"]}
+        check((r["n_buckets"], r["n_segments"]) == want,
+              f"launch: {arch}'s readiness report {anchors[arch]}, want "
+              f"{want}")
+    print(f"launch anchors: {anchors}")
+    cells, launches, remat = launch_remat(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    more, serving = launch_serving_cells(device)
+    cells += more
+    launches_by_path = {f"launch gpt2 train {r} (4 steps)": launches[r]
+                        for r in REMATS}
+    launches_by_path.update(serving)
+    dtensor = launch_dtensor(device)
+    line = {"launch": {"card": card, "anchors": anchors, "memory": cells,
+                       "remat": remat, "dtensor": dtensor,
+                       "wall_s": time.perf_counter() - t0}}
+    return launches_by_path, line
 
 
 def matmul_shapes(prof, n: int):
@@ -4268,6 +4609,10 @@ def main() -> None:
     f_launches, families_line = families(device, card)
     launches.update(f_launches)
     torch.cuda.empty_cache()
+    l_launches, launch_line = launch(device, card)
+    launches.update(l_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
@@ -4284,6 +4629,7 @@ def main() -> None:
     print(json.dumps(moe_line))
     print(json.dumps(serving_campaign_line))
     print(json.dumps(families_line))
+    print(json.dumps(launch_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,12 +16,14 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """The ``torch.device`` an entry point runs on.
 
-    Only ``cuda`` and ``cpu`` are supported. Asking for ``cuda`` without a
+    ``cuda`` and ``cpu`` run; ``meta`` only traces shapes (the launch
+    dry-run, ``repro_torch.launch.dryrun``). Asking for ``cuda`` without a
     card raises instead of running on the CPU: the CPU is used only when
     the caller names it."""
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         f"(or 'meta' to trace shapes)")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

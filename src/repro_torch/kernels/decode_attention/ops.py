@@ -30,12 +30,27 @@ def _lib():
     return _LIB
 
 
+# decode.cu's BS (cache rows a chunk) and HEADS (query heads a block)
+CHUNK_ROWS = 64
+BLOCK_HEADS = 8
+
+
 @functools.lru_cache(maxsize=None)
 def _workspace_floats(B: int, H: int, KV: int, S: int, hd: int) -> int:
     """Floats of the partial outputs the kernel lays out for a call; their
     max and sum take this many / hd * 2. Asked once a shape, so that a
     decode step pays no ctypes call for it."""
     return _lib().decode_workspace_floats(B, H, KV, S, hd)
+
+
+def workspace_floats(B: int, H: int, KV: int, S: int, hd: int) -> int:
+    """The library's ``decode_workspace_floats`` without the library (the
+    meta branch sizes the workspace with it): each (b, KV head) gets its
+    query heads padded to BLOCK_HEADS, times its chunks of CHUNK_ROWS, of
+    hd floats."""
+    G = H // KV
+    padded = -(-G // BLOCK_HEADS) * BLOCK_HEADS
+    return B * KV * padded * -(-S // CHUNK_ROWS) * hd
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -91,22 +106,27 @@ def decode_attention(q, k_cache, v_cache, lens, scale=None):
     q: (B, H, hd); ``lens``: a scalar or (B,) lengths, and row b attends
     over its first min(len_b, S) cache rows. Returns (B, H, hd) in q's
     dtype. A CPU tensor goes to the plain version; a CUDA tensor to the
-    kernel, which reads the caches through their strides."""
+    kernel, which reads the caches through their strides. A meta tensor
+    takes the kernel's checks and allocations (o and the workspace) and
+    stops before the launch: nothing computed, no launch counted."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lens, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     _check(q, k_cache, v_cache)
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = hd ** -0.5 if scale is None else float(scale)
     lens = _lens_on_device(lens, B, q.device)
-    lib = _lib()
+    meta = q.device.type == "meta"
+    lib = None if meta else _lib()
     o = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     # the partial outputs and their max and sum, laid out by the kernel
-    n = _workspace_floats(B, H, KV, S, hd)
+    n = (workspace_floats if meta else _workspace_floats)(B, H, KV, S, hd)
     part_o = torch.empty(n, dtype=torch.float32, device=q.device)
     part_ml = torch.empty(n // hd * 2, dtype=torch.float32, device=q.device)
+    if meta:
+        return o
     with torch.cuda.device(q.device):
         err = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -87,10 +87,12 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     Returns (o (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) float32). The
     causal mask is top-left aligned. A CPU tensor goes to the plain
     version; a CUDA tensor to the kernel, which reads q, k and v through
-    their strides (the head dim must be contiguous)."""
+    their strides (the head dim must be contiguous). A meta tensor takes
+    the kernel's checks and allocations and stops before the launch: the
+    outputs' shapes, nothing computed, no launch counted."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v)
     B, Sq, H, hd = q.shape
@@ -98,6 +100,8 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     scale = hd ** -0.5 if scale is None else float(scale)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return o, lse
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd(
@@ -149,10 +153,13 @@ def _strides(q, k, v, do, dq, dk, dv):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """B2a on checked CUDA tensors: dQ (B, Sq, H, hd) in q's dtype."""
+    """B2a on checked CUDA (or meta) tensors: dQ (B, Sq, H, hd) in q's
+    dtype."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if q.device.type == "meta":
+        return dq
     with torch.cuda.device(q.device):
         err = _bwd_lib().flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -166,12 +173,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """B2b on checked CUDA tensors: (dK, dV), each (B, Sk, KV, hd) in k's
-    dtype and summed over the query heads of its K/V head."""
+    """B2b on checked CUDA (or meta) tensors: (dK, dV), each (B, Sk, KV,
+    hd) in k's dtype and summed over the query heads of its K/V head."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if q.device.type == "meta":
+        return dk, dv
     with torch.cuda.device(q.device):
         err = _bwd_lib().flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -198,11 +207,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     which read every tensor through its strides. ``do`` may come with any
     strides (autograd hands over what it has); one the kernels cannot read
     is copied first. delta = rowsum(o * do) is formed here in float32, as
-    the reference forms it outside its Pallas calls."""
+    the reference forms it outside its Pallas calls. A meta tensor takes
+    the kernels' checks and allocations (delta, dq, dk, dv and any copy of
+    do) and launches nothing."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")
     do = _kernel_layout(do)

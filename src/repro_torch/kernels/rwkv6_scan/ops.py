@@ -57,10 +57,13 @@ def _check(r, k, v, w, u) -> None:
 
 def _launch(r, k, v, w, u):
     """B5 on checked CUDA tensors: (y (B, T, H, N) float32, the final state
-    (B, H, N, N) float32)."""
+    (B, H, N, N) float32). On meta tensors, the same allocations and no
+    launch."""
     B, T, H, N = r.shape
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     state = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        return y, state
     strides = _Strides(*r.stride(), *k.stride(), *v.stride(), *w.stride(),
                        *u.stride())
     with torch.cuda.device(r.device):
@@ -109,10 +112,12 @@ def rwkv6_scan(r, k, v, w, u):
     state (B, H, N, N) float32. A CPU tensor goes to the plain version; a
     CUDA tensor to the kernel (B5), which reads every input through its
     strides, takes any T and N = 64 only. Where autograd wants a gradient,
-    the kernel runs under :class:`RWKV6Scan`."""
+    the kernel runs under :class:`RWKV6Scan`. A meta tensor takes the
+    kernel path's checks and allocations and launches nothing (its
+    backward, the plain scan's autograd, runs on meta too)."""
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, u)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan runs on cuda or cpu, not {r.device}")
     _check(r, k, v, w, u)
     if torch.is_grad_enabled() and any(

@@ -78,12 +78,15 @@ def _tma_readable(t) -> bool:
 
 def _launch(xh, dt, A, Bm, Cm, return_state: bool = True):
     """B4 on checked CUDA tensors: (y (B, T, H, P) float32, the final state
-    (B, H, P, N) float32, or None when ``return_state`` is False)."""
+    (B, H, P, N) float32, or None when ``return_state`` is False). On meta
+    tensors, the same allocations and no launch."""
     B, T, H, P = xh.shape
     N = Bm.shape[-1]
     y = torch.empty((B, T, H, P), dtype=torch.float32, device=xh.device)
     state = (torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
              if return_state else None)
+    if xh.device.type == "meta":
+        return y, state
     strides = _Strides(*xh.stride(), *dt.stride(), *A.stride(), *Bm.stride(),
                        *Cm.stride())
     with torch.cuda.device(xh.device):
@@ -136,10 +139,12 @@ def ssd_scan(xh, dt, A, Bm, Cm, return_state: bool = False):
     :data:`SHAPES`: float32 inputs take its CUDA-core body, bfloat16 ones
     its wgmma body, which needs xh, Bm and Cm in a layout that TMA reads
     (:func:`_tma_readable`). Where autograd wants a gradient, the kernel
-    runs under :class:`SSDScan`."""
+    runs under :class:`SSDScan`. A meta tensor takes the kernel path's
+    checks and allocations and launches nothing (its backward, the plain
+    scan's autograd, runs on meta too)."""
     if xh.device.type == "cpu":
         y, state = ssd_scan_ref(xh, dt, A, Bm, Cm)
-    elif xh.device.type != "cuda":
+    elif xh.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {xh.device}")
     else:
         _check(xh, dt, A, Bm, Cm)

@@ -13,11 +13,13 @@ keeps for the backward); ``prefill`` builds the decode cache,
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from . import attention as A
@@ -75,12 +77,47 @@ def serving_params(params: Dict[str, Any], cfg: ModelConfig,
     return unflatten((path, cast(path, leaf)) for path, leaf in flatten(params))
 
 
+REMATS = ("none", "full", "dots")
+
+# the products with no batch dims: what ``x @ W`` reaches (a 2-D weight
+# folds the leading dims into one ``mm``), the outputs the reference's
+# ``checkpoint_dots_with_no_batch_dims`` keeps
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of the products with no batch dims; recompute the
+    rest (the experts' batched ``bmm``, the elementwise work, the
+    attention and scan kernels)."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_contexts = functools.partial(create_selective_checkpoint_contexts,
+                                   _dots_policy)
+
+
 def _check_remat(cfg: ModelConfig) -> None:
-    """Remat "full" and "none" are ported; "dots" is not (ROADMAP A3b)."""
-    if cfg.remat not in ("full", "none"):
+    """Remat "none", "full" and "dots" are ported; any other name raises."""
+    if cfg.remat not in REMATS:
         raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (ROADMAP A3b: "
-            f"remat 'dots'); use 'full' or 'none'")
+            f"remat={cfg.remat!r} is not a remat policy; use one of "
+            f"{REMATS}")
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: "none" keeps every activation for
+    the backward; "full" keeps only the inputs and runs ``fn`` again in the
+    backward (``jax.checkpoint``); "dots" keeps the outputs of the products
+    with no batch dims as well and recomputes the rest (``jax.checkpoint``
+    with ``checkpoint_dots_with_no_batch_dims``), through a selective
+    checkpoint whose policy is :func:`_dots_policy`."""
+    if cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_dots_contexts)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -222,7 +259,9 @@ class LM:
         it is used, as in the reference, so the gradients reach the masters.
         ``cfg.remat == "full"`` keeps only each layer's input and runs the
         layer again in the backward (``torch.utils.checkpoint``), as the
-        reference's ``jax.checkpoint`` does; ``"none"`` keeps everything."""
+        reference's ``jax.checkpoint`` does; ``"dots"`` also keeps the
+        layer's products with no batch dims (:func:`remat`); ``"none"``
+        keeps everything."""
         cfg = self.cfg
         _check_remat(cfg)
         x = self._embed(params, tokens)
@@ -231,11 +270,7 @@ class LM:
                                  device=self.device).expand(B, S)
         rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
         for blk in _layers(params["blocks"], cfg.n_layers):
-            if cfg.remat == "full":
-                x = checkpoint(self._train_block, x, blk, rope,
-                               use_reentrant=False)
-            else:
-                x = self._train_block(x, blk, rope)
+            x = remat(cfg, self._train_block, x, blk, rope)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)
 
@@ -409,8 +444,8 @@ class VlmLM(LM):
     def forward(self, params, tokens, img_embeds=None) -> torch.Tensor:
         """tokens (B, S) and image embeddings (B, n_image_tokens, D) or None
         -> logits (B, S, V) in ``cfg.dtype``; differentiable as
-        :meth:`LM.forward` is. Under remat "full" each group (its cross
-        block and its self blocks) is one checkpoint, as in the
+        :meth:`LM.forward` is. Under remat "full" or "dots" each group (its
+        cross block and its self blocks) is one checkpoint, as in the
         reference."""
         cfg = self.cfg
         _check_remat(cfg)
@@ -430,8 +465,7 @@ class VlmLM(LM):
 
         for cross, selfs in zip(_layers(params["cross_blocks"], G),
                                 _layers(params["self_blocks"], G)):
-            x = checkpoint(group, x, cross, selfs, use_reentrant=False) \
-                if cfg.remat == "full" else group(x, cross, selfs)
+            x = remat(cfg, group, x, cross, selfs)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)
 
@@ -579,9 +613,9 @@ class HybridLM(LM):
 
     def forward(self, params, tokens) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``; differentiable
-        as :meth:`LM.forward` is. Under remat "full" each group (the shared
-        block and its Mamba2 blocks) and each remainder block is one
-        checkpoint, as in the reference."""
+        as :meth:`LM.forward` is. Under remat "full" or "dots" each group
+        (the shared block and its Mamba2 blocks) and each remainder block is
+        one checkpoint, as in the reference."""
         cfg = self.cfg
         _check_remat(cfg)
         G, E, R = self._layout()
@@ -603,8 +637,7 @@ class HybridLM(LM):
             steps += [(self._train_mamba, blk)
                       for blk in _layers(params["rem"], R)]
         for fn, p in steps:
-            x = checkpoint(fn, x, p, use_reentrant=False) \
-                if cfg.remat == "full" else fn(x, p)
+            x = remat(cfg, fn, x, p)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)
 
@@ -742,14 +775,13 @@ class RwkvLM(LM):
 
     def forward(self, params, tokens) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``; differentiable
-        as :meth:`LM.forward` is. Under remat "full" each block is one
-        checkpoint, as in the reference."""
+        as :meth:`LM.forward` is. Under remat "full" or "dots" each block is
+        one checkpoint, as in the reference."""
         cfg = self.cfg
         _check_remat(cfg)
         x = self._embed(params, tokens)
         for blk in _layers(params["blocks"], cfg.n_layers):
-            x = checkpoint(self._train_rwkv, x, blk, use_reentrant=False) \
-                if cfg.remat == "full" else self._train_rwkv(x, blk)
+            x = remat(cfg, self._train_rwkv, x, blk)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)
 

@@ -847,3 +847,154 @@ def test_vlm_attention_check_rejects_a_last_key_fault():
     decode_only = records[L:]
     assert CS.moe_attention_layers(decode_only, cfg, cross[-1],
                                    faults)[cross[-1]] > CS.MOE_ATTN_REL_L2
+
+
+# ---------------------------------------------------------------------------
+# the launch phase's parts that run without a card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list(CS.LAUNCH_ANCHORS))
+def test_launch_anchors_are_the_hook_dryruns(arch):
+    r = CS.readiness_report(arch)
+    assert (r["n_buckets"], r["n_segments"]) == CS.LAUNCH_ANCHORS[arch]
+
+
+def test_launch_memory_check_rejects_a_prediction_planted_20_percent_low(
+        monkeypatch):
+    """The launch phase's memory cell at gpt2-124m's full-width train step
+    (remat full), its card reading stood in for by the dry-run's own
+    prediction: passed as it is, and refused when the prediction is
+    planted 20 % low (past the 10 % that rules above 640 MiB)."""
+    cfg = CS.gpt2_124m.config()
+    shape = CS.CC.Shape("gpt2 train", CS.TRAIN_S, CS.TRAIN_B, "train")
+    params = CS.DRY.meta_params(cfg)
+    opt = CS.AdamWConfig()
+    real = CS.DRY._trace_pass(cfg, shape, CS.make_debug_mesh(1, 1), opt)
+    temp = real["memory"]["temp_size_in_bytes"]
+    assert temp > 10 * CS.MEM_ABS
+    monkeypatch.setattr(CS, "step_peak",
+                        lambda run, args: (temp, CS.DRY.MemoryLog()))
+    cell = CS.memory_cell("gpt2 full", cfg, shape, None, {}, params, opt)
+    assert cell["predicted_bytes"] == temp and cell["rel_err"] == 0
+
+    def planted(*a, **k):
+        out = dict(real)
+        out["memory"] = dict(real["memory"], temp_size_in_bytes=int(
+            0.8 * temp))
+        return out
+    monkeypatch.setattr(CS.DRY, "_trace_pass", planted)
+    with pytest.raises(SystemExit):
+        CS.memory_cell("gpt2 full", cfg, shape, None, {}, params, opt)
+
+
+def test_launch_memory_limit_is_ten_percent_or_64_mib():
+    """The limit is 10 % of the measured peak or a floor of 64 KiB, the
+    larger (the floor was 64 MiB; it is now 64 KiB, so 10 % rules at every
+    step the phase measures)."""
+    assert CS.MEM_ABS == 64 << 10
+    for measured in (1 << 10, 1 << 20, 330 << 20, 10 << 30):
+        ok, limit = CS.memory_agrees(measured, measured)
+        assert ok and limit == max(0.1 * measured, 64 << 10)
+        assert not CS.memory_agrees(measured + limit + 1, measured)[0]
+    assert not CS.memory_agrees(int(0.8 * (1 << 30)), 1 << 30)[0]
+
+
+# each launch memory cell's step peak on an H100 above its baseline, bytes
+# (chip_smoke.py's launch line on an NVIDIA H100 80GB HBM3 at 700 W)
+LAUNCH_MEASURED = {"gpt2-124m train none": 10877994496,
+                   "gpt2-124m train full": 6855919104,
+                   "gpt2-124m train dots": 8819901952,
+                   "yi-6b prefill": 346294784, "yi-6b decode": 741376,
+                   "zamba2-1.2b prefill": 460393472,
+                   "rwkv6-3b prefill": 268759552}
+
+
+@pytest.mark.parametrize("cell", list(LAUNCH_MEASURED))
+def test_launch_memory_limit_refuses_20_percent_low_at_every_cell(cell):
+    measured = LAUNCH_MEASURED[cell]
+    assert CS.memory_agrees(measured, measured)[0]
+    assert not CS.memory_agrees(int(0.8 * measured), measured)[0]
+    assert not CS.memory_agrees(int(1.2 * measured) + 1, measured)[0]
+
+
+def test_launch_memory_cell_rejects_a_planted_low_prediction_at_decode(
+        monkeypatch):
+    """The memory cell at yi-6b's full-width decode step (B=4, a 544-row
+    cache; 0.7 MiB), its card reading stood in for by the dry-run's own
+    prediction: passed as it is, refused when the prediction is planted
+    20 % low."""
+    cfg = CS.yi_6b.config(param_dtype=torch.bfloat16)
+    shape = CS.CC.Shape("decode", CS.SERVE_MAX_LEN, CS.LAUNCH_B, "decode")
+    params = CS.DRY.meta_params(cfg)
+    real = CS.DRY._trace_pass(cfg, shape, CS.make_debug_mesh(1, 1))
+    temp = real["memory"]["temp_size_in_bytes"]
+    assert temp == LAUNCH_MEASURED["yi-6b decode"]
+    monkeypatch.setattr(CS, "step_peak",
+                        lambda run, args: (temp, CS.DRY.MemoryLog()))
+    assert CS.memory_cell("yi-6b decode", cfg, shape, None, {},
+                          params)["rel_err"] == 0
+
+    def planted(*a, **k):
+        return dict(real, memory=dict(real["memory"], temp_size_in_bytes=int(
+            0.8 * temp)))
+    monkeypatch.setattr(CS.DRY, "_trace_pass", planted)
+    with pytest.raises(SystemExit):
+        CS.memory_cell("yi-6b decode", cfg, shape, None, {}, params)
+
+
+@pytest.mark.parametrize("phase", ["moe", "vlm"])
+def test_memory_check_needs_the_setup_peak_and_the_prefill_step(
+        phase, monkeypatch):
+    """``memory_check`` needs the larger of the set-up's traced peak (the
+    float32 draws of ``model.init``) and the prefill step's bytes, and
+    refuses a card with less free: the vlm's set-up (32.6 GB) is ~10 GB
+    above its prefill step."""
+    cfg, headroom = {"moe": (CS.moe_config(), CS.MOE_HEADROOM_GB),
+                     "vlm": (CS.vlm_config(), CS.VLM_HEADROOM_GB)}[phase]
+    monkeypatch.setattr(CS.torch.cuda, "mem_get_info",
+                        lambda: (int(80e9), int(85e9)))
+    free, total, dry = CS.memory_check(cfg, headroom, phase)
+    assert dry["need_gb"] == max(dry["setup_gb"], dry["prefill_gb"])
+    assert dry["setup_gb"] > CS.param_gb(cfg)
+    if phase == "vlm":
+        assert dry["setup_gb"] > dry["prefill_gb"] + 10
+    below = int((dry["need_gb"] - 0.01) * 1e9)
+    monkeypatch.setattr(CS.torch.cuda, "mem_get_info",
+                        lambda: (below, int(85e9)))
+    with pytest.raises(SystemExit):
+        CS.memory_check(cfg, headroom, phase)
+
+
+def test_launch_remat_launch_expectations_match_the_plain_counts():
+    """One train step of gpt2's smoke model on the CPU under each remat:
+    the plain forward runs as often as the phase wants B1 to run, the
+    plain backward as often as B2a (and B2b) run."""
+    cfg = CS.gpt2_124m.smoke_config(dtype=torch.float32)
+    params = CS.build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, (2, 17))
+    for remat in CS.REMATS:
+        model = CS.build_model(CS.dataclasses.replace(cfg, remat=remat),
+                               device="cpu")
+        CS.zero_counts()
+        CS.value_and_grad(model, params, {"tokens": tokens})
+        n = CS.read_counts()
+        want = CS.remat_step_launches(remat, cfg.n_layers)
+        assert n["flash_attention_ref"] == want["flash_attention"]
+        assert n["flash_attention_bwd_ref"] == want["flash_bwd_dq"] \
+            == want["flash_bwd_dkv"]
+        assert all(n[k] == 0 for k in CS.KERNELS)
+    assert CS.remat_step_launches("none", 12)["flash_attention"] == 12
+    assert CS.remat_step_launches("dots", 12)["flash_attention"] == 24
+
+
+def test_launch_prefill_expectations_are_the_configs_layers():
+    from repro_torch.models.lm import hybrid_layout
+    assert CS.LAUNCH_PREFILL["yi-6b"] == {
+        "flash_attention": CS.yi_6b.config().n_layers}
+    z = CS.zamba2_1p2b.config()
+    assert CS.LAUNCH_PREFILL["zamba2-1.2b"] == {
+        "ssd_scan": z.n_layers, "flash_attention": hybrid_layout(z)[0]}
+    assert CS.LAUNCH_PREFILL["rwkv6-3b"] == {
+        "rwkv6_scan": CS.rwkv6_3b.config().n_layers}

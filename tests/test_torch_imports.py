@@ -1,8 +1,10 @@
 """The port stands alone: importing it, serving (dense, audio, moe, vlm,
 hybrid and rwkv6, and moe over its own fabric), taking a train step and a
-data-parallel step over its own fabric on the CPU, and running campaign
+data-parallel step over its own fabric on the CPU, running campaign
 cells (``repro_torch.scenarios``, with ``repro_torch.policy`` imported; a
-``serving`` cell among them) loads neither ``jax`` nor any module of
+``serving`` cell among them), and the launch tooling
+(``repro_torch.launch.{mesh,sharding,hook_dryrun,dryrun}``: a meta-device
+trace and a readiness report) loads neither ``jax`` nor any module of
 ``repro``; and it never moves to the CPU on its own."""
 
 import os
@@ -102,6 +104,16 @@ cell = run_scenario(SCENARIOS["sender_nic_down"], "pingpong")
 assert cell.ok and cell.completed and cell.fallbacks >= 1, cell.violations
 cell = run_scenario(SCENARIOS["rail_kill_striped"], "serving", device="cpu")
 assert cell.ok and cell.completed and cell.fallbacks >= 1, cell.violations
+import repro_torch.launch.mesh, repro_torch.launch.sharding
+import repro_torch.launch.hook_dryrun
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch import configs as C
+cell = dryrun._trace_pass(C.smoke_config("gpt2-124m"),
+                          C.Shape("t", 8, 2, "train"), make_debug_mesh(1, 1))
+assert cell["memory"]["temp_size_in_bytes"] > 0
+report = repro_torch.launch.hook_dryrun.readiness_report("gpt2-124m")
+assert report["n_segments"] == 14, report
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))

@@ -155,14 +155,21 @@ def test_cpu_tensors_go_to_the_plain_versions():
     assert out.shape == (1, 4, 16)
 
 
+class _Elsewhere:
+    """Stands for a tensor on a device that is neither the CPU, a card nor
+    meta (the wrappers read ``.device`` before anything else)."""
+    device = torch.device("xpu")
+    shape = (1, 4, 2, 16)
+
+
 def test_wrappers_refuse_other_devices():
-    """A tensor on neither the CPU nor a card is refused, not computed."""
-    q = torch.empty(1, 4, 2, 16, device="meta")
-    k = torch.empty(1, 4, 2, 16, device="meta")
+    """A tensor on neither the CPU nor a card (nor meta, which traces
+    shapes) is refused, not computed."""
+    q = k = _Elsewhere()
     with pytest.raises(ValueError, match="cuda or cpu"):
         FO.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        DO.decode_attention(q[:, 0], k, k, 3)
+        DO.decode_attention(q, k, k, 3)
 
 
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
@@ -423,6 +430,6 @@ def test_flash_bwd_input_checks():
 
 
 def test_flash_bwd_wrapper_refuses_other_devices():
-    q = torch.empty(1, 4, 2, 16, device="meta")
+    q = _Elsewhere()
     with pytest.raises(ValueError, match="cuda or cpu"):
         FO.flash_attention_bwd(q, q, q, q, torch.empty(1, 2, 4), q)

@@ -211,7 +211,7 @@ def test_other_families_and_devices_raise():
         t_build(dataclasses.replace(t_yi.smoke_config(), family="encoder"),
                 device="cpu")
     with pytest.raises(ValueError, match="cuda"):
-        t_build(t_yi.smoke_config(), device="meta")
+        t_build(t_yi.smoke_config(), device="xpu")
 
 
 # ---------------------------------------------------------------------------

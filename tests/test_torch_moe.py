@@ -337,7 +337,13 @@ def test_ragged_prefill_and_per_row_decode_past_the_cache_end(ref_trees,
 
 
 def test_remat_dots_raises_naming_the_roadmap_item():
+    """Remat "dots" is ported (its own tests are in test_torch_remat.py):
+    it runs; a name that is no remat policy raises, naming the three that
+    are."""
     tm = t_build(t_llama4.smoke_config(remat="dots"), device="cpu")
     params = tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A3b"):
+    assert torch.isfinite(tm.forward(params, np.zeros((1, 4), np.int32))
+                          .float()).all()
+    tm = t_build(t_llama4.smoke_config(remat="selective"), device="cpu")
+    with pytest.raises(NotImplementedError, match="'none', 'full', 'dots'"):
         tm.forward(params, np.zeros((1, 4), np.int32))

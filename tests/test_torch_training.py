@@ -185,10 +185,27 @@ def test_remat_does_not_change_the_gradients_and_reruns_the_forward():
 
 
 def test_remat_dots_is_not_ported():
-    cfg = t_gpt2.smoke_config(remat="dots")
-    model = t_build(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="dots"):
+    """Remat "dots" is ported now: it gives "full"'s loss and gradients
+    bit for bit and, like "full", runs each layer's attention forward
+    twice; a name that is no remat policy still raises."""
+    out, counts = {}, {}
+    for remat in ("full", "dots"):
+        cfg = t_gpt2.smoke_config(dtype=torch.float32, remat=remat)
+        model = t_build(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        TFR.flash_attention_ref.launches = 0
+        TFR.flash_attention_bwd_ref.launches = 0
+        out[remat] = value_and_grad(model, params, {"tokens": _tokens(cfg)})
+        counts[remat] = (TFR.flash_attention_ref.launches,
+                         TFR.flash_attention_bwd_ref.launches)
+    L = cfg.n_layers
+    assert counts == {"full": (2 * L, L), "dots": (2 * L, L)}
+    assert torch.equal(out["full"][0], out["dots"][0])
+    for (p, a), (_, b) in zip(flatten(out["full"][1]),
+                              flatten(out["dots"][1])):
+        assert torch.equal(a, b), p
+    model = t_build(t_gpt2.smoke_config(remat="selective"), device="cpu")
+    with pytest.raises(NotImplementedError, match="remat"):
         model.loss(params, {"tokens": _tokens(cfg)})
 
 

@@ -197,9 +197,15 @@ def test_loss_and_every_gradient_match_jax(ref_tree, inputs, remat):
 
 
 def test_remat_dots_raises_naming_the_roadmap_item():
+    """Remat "dots" is ported (its own tests are in test_torch_remat.py):
+    it runs; a name that is no remat policy raises, naming the three that
+    are."""
     tm = t_build(t_vlm.smoke_config(remat="dots"), device="cpu")
     params = tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A3b"):
+    assert torch.isfinite(tm.forward(params, np.zeros((1, 4), np.int32))
+                          .float()).all()
+    tm = t_build(t_vlm.smoke_config(remat="selective"), device="cpu")
+    with pytest.raises(NotImplementedError, match="'none', 'full', 'dots'"):
         tm.forward(params, np.zeros((1, 4), np.int32))
 
 
