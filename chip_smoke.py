@@ -68,6 +68,17 @@ and read just after, that each went through the kernels:
   engine over a 2-rank, 2-channel world, healthy and with host0's first
   NIC killed mid-decode, giving the tokens of its ``world=None`` run
   with no reconstruction mismatch and a fallback under the kill;
+* serving kimi-k2-1t-a32b (head dim 112, 64 query heads over 8 K/V heads,
+  384 experts, top-8) once llama4-maverick's engine is freed: its float32
+  smoke model at head dim 112 for 3 train steps on the card against the
+  CPU, then KIMI_LAYERS of its 61 layers at full width with bf16 params
+  (72.82 GB at 2 layers) through ``ServeEngine.generate`` (uniform and
+  ragged) and ``RequestScheduler``: exactly KIMI_LAYERS flash-attention
+  launches a prefill or admission and KIMI_LAYERS decode-attention
+  launches a decode step, 0 plain; each layer's attention sublayer
+  within 2e-2 of the plain versions (a one-layer planted fault must
+  exceed it), the set-up's peak held to its meta trace, the whole path's
+  logits and the share of expert choices that differ printed;
 * the families phase: the float32 musicgen-medium, starcoder2-3b and
   deepseek-67b smoke models (ragged prompts) and the llama-3.2-vision
   smoke model (gates nonzero, a greedy loop over random image embeddings
@@ -128,6 +139,9 @@ the train step, and prints:
   step, generate and scheduler tokens/s, device-busy ms and idle share,
   peak memory, each layer's attention error and the routing share that
   differs between the paths;
+* a ``{"kimi": ...}`` line: the same readings as the moe line for
+  kimi-k2-1t-a32b, the top-8 choices that differ among them, and the
+  hd-112 smoke model's train-step losses on the card and the CPU;
 * a ``{"serving_campaign": ...}`` line: each smoke cell's fingerprint
   agreement, fallbacks, mismatches, launches and wall s, and the
   full-width TP run's tokens per virtual second, healthy and under the
@@ -144,15 +158,17 @@ the train step, and prints:
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
   inputs, and the card's least time for the same work (``bound_ms``);
-  flash attention's entry also lists all five of its main-path shapes
+  flash attention's entry also lists all six of its main-path shapes
   (``shapes``: yi-6b prefill, zamba2 prefill, gpt2 train forward,
-  llama4-maverick prefill, and the non-causal llama-3.2-vision cross
-  prefill), and the backward kernels' entries the time of the whole
-  backward call (``bwd_ms``: delta, B2a and B2b), which compares with
-  SDPA's; decode attention's entry its five shapes (yi-6b serving, zamba2
-  decode, every row in one chunk, llama4-maverick serving,
-  llama-3.2-vision cross decode) and its time by the chunks a row holds
-  (``ms_by_chunks``);
+  llama4-maverick prefill, kimi-k2 prefill at hd 112, and the non-causal
+  llama-3.2-vision cross prefill), and the backward kernels' entries the
+  time of the whole backward call (``bwd_ms``: delta, B2a and B2b), which
+  compares with SDPA's, and the same at kimi-k2's attention shape
+  (``kimi``); decode attention's entry its six shapes (yi-6b serving,
+  zamba2 decode, every row in one chunk, llama4-maverick serving,
+  kimi-k2 serving at hd 112, llama-3.2-vision cross decode) and its time
+  by the chunks a row holds (``ms_by_chunks``); at kimi-k2's shapes the
+  SDPA backend that ran is named (``library_backend``);
 * the card's name and power limit, as nvidia-smi gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -383,6 +399,18 @@ MOE_HEADROOM_GB = 4.0
 # serving limit, which a planted fault of the plain attention confined to
 # one layer must exceed.
 MOE_ATTN_REL_L2 = LOGITS_REL_L2
+# kimi-k2-1t-a32b at full width on one card, once llama4-maverick's engine
+# is freed: KIMI_LAYERS of its 61 layers with bf16 params, 36.4 B params or
+# 72.82 GB (each layer 34.06 GB, 33.82 of it the 384 experts of 3 x 7168 x
+# 2048; the embeddings 4.70). Its head dim is 112 (7168 / 64 heads), which B1,
+# B2a, B2b and B3 take on 128-column tiles. It starts only with the
+# dry-run's need free (``memory_check``: 74.64 GB at 2 layers, its B=4 x
+# 512 prefill step; set-up 72.93), and is held to the same gates as
+# llama4-maverick's: exact launches, each layer's attention within
+# MOE_ATTN_REL_L2, the set-up's peak against its trace. Its routing is
+# top-8 of 384; the share of expert choices that differ between the kernel
+# and plain paths is printed, not gated, as for llama4.
+KIMI_LAYERS = 2
 # The serving campaign: (a) these cells of the smoke MoE model on the card
 # and the CPU; (b) the moe phase's engine over a 2-rank, 2-channel world,
 # TP_FULL_REQUESTS requests of TP_FULL_TOKENS tokens on as many slots,
@@ -540,10 +568,20 @@ def flash_cases():
               False),
              ("vlm smoke cross", 2, 8, 2, 12, 16, 16, bf, False),
              ("musicgen prefill", 4, 24, 24, 512, 512, 64, bf, True),
-             ("starcoder2-3b prefill", 4, 24, 2, 512, 512, 128, bf, True)]
-    # the bf16 body's 128-row query blocks and 128-key tiles: lengths on
-    # either side of one and two tiles, at both model head dims
-    for hd in (64, 128):
+             ("starcoder2-3b prefill", 4, 24, 2, 512, 512, 128, bf, True),
+             # kimi-k2 at full width: head dim 112 (the bf16 body's
+             # 128-column tiles, TMA's zeros past 112), 8 query heads a
+             # K/V head, a 4 x 512 prefill and an admission; a float32
+             # ragged GQA case at hd 112
+             ("kimi prefill", 4, 64, 8, 512, 512, 112, bf, True),
+             ("kimi admit", 1, 64, 8, SCHED_PREFILL, SCHED_PREFILL, 112,
+              bf, True),
+             ("ragged GQA non-causal", 3, 16, 2, 77, 301, 112, f32, False),
+             ("ragged GQA causal Sq>Sk", 2, 16, 2, 100, 70, 112, f32, True)]
+    # the bf16 body's 128-row query blocks and 128- (64 at hd 112 and 128)
+    # key tiles: lengths on either side of one and two tiles, at every
+    # model head dim of the bf16 path
+    for hd in (64, 112, 128):
         cases += [(f"tile edge S={S}", 2, 8, 2, S, S, hd, bf, True)
                   for S in (127, 128, 129, 255, 257)]
         cases += [("tile edges causal Sq>Sk", 2, 8, 2, 257, 129, hd, bf, True),
@@ -607,7 +645,18 @@ def decode_cases():
             ("musicgen serving", 4, 24, 24, SERVE_MAX_LEN, 64, bf,
              [n + N_NEW // 2 for n in PROMPT_LENS]),
             ("starcoder2-3b serving", 4, 24, 2, SERVE_MAX_LEN, 128, bf,
-             [n + N_NEW // 2 for n in PROMPT_LENS])]
+             [n + N_NEW // 2 for n in PROMPT_LENS]),
+            # kimi-k2's decode at full width (hd 112: 7 tiles of 16 over 4
+            # warps; G = 8, one group a block): its serving lengths, every
+            # row in one chunk, and float32; G = 1 at hd 112 (a row's 16
+            # lanes, 14 of which load)
+            ("kimi serving", 4, 64, 8, SERVE_MAX_LEN, 112, bf,
+             [n + N_NEW // 2 for n in PROMPT_LENS]),
+            ("kimi one chunk each", 4, 64, 8, SERVE_MAX_LEN, 112, bf,
+             [1, 17, 63, 64]),
+            ("kimi serving f32", 4, 64, 8, SERVE_MAX_LEN, 112, f32,
+             [n + N_NEW // 2 for n in PROMPT_LENS]),
+            ("MHA hd=112", 2, 8, 8, 300, 112, bf, [300, 77])]
 
 
 def rand_like_cases(gen, shapes, dtype, device):
@@ -781,11 +830,18 @@ def bwd_cases():
              ("GQA ragged", 2, 8, 2, 77, 77, 128, f32, False),
              ("GQA causal Sq>Sk", 2, 6, 3, 100, 70, 32, f32, True),
              ("GQA causal Sq>Sk", 2, 8, 2, 100, 70, 16, bf, True),
-             ("GQA causal Sq<Sk", 2, 4, 2, 40, 70, 64, bf, True)]
+             ("GQA causal Sq<Sk", 2, 4, 2, 40, 70, 64, bf, True),
+             # kimi-k2's attention at hd 112 (the bf16 bodies' 128-column
+             # tiles), both dtypes, and ragged causal
+             ("kimi attention", 2, 64, 8, 1024, 1024, 112, bf, True),
+             ("kimi attention", 2, 64, 8, 1024, 1024, 112, f32, True),
+             ("GQA ragged causal", 2, 16, 2, 200, 200, 112, bf, True),
+             ("GQA ragged causal Sq>Sk", 2, 16, 2, 257, 129, 112, bf, True)]
     # the bf16 body's 128-row work tiles (queries for B2a, keys for B2b),
-    # B2a's K/V tiles (128 keys, 64 at hd 128) and B2b's 64-query stages:
-    # lengths on either side of one and two tiles, at both model head dims
-    for hd in (64, 128):
+    # B2a's K/V tiles (128 keys, 64 at hd 112 and 128) and B2b's 64-query
+    # stages: lengths on either side of one and two tiles, at every model
+    # head dim of the bf16 path
+    for hd in (64, 112, 128):
         cases += [(f"tile edge S={S}", 2, 4, 4, S, S, hd, bf, True)
                   for S in (127, 128, 129, 255, 257)]
         cases += [("tile edges causal Sq>Sk", 2, 4, 4, 257, 129, hd, bf, True),
@@ -1152,15 +1208,30 @@ def check_refusals(device):
 
 
 # B1's main-path shapes: (path, B, H, KV, S, hd), all bf16 and causal (the
-# llama4-maverick prefill: 5 query heads a K/V head)
+# llama4-maverick prefill: 5 query heads a K/V head; kimi-k2's: hd 112)
 FLASH_TIMED = (("yi-6b prefill", 4, 32, 4, 512, 128),
                ("zamba2 prefill", 4, 32, 32, 512, 64),
                ("gpt2 train forward", TRAIN_B, 12, 12, TRAIN_S, 64),
-               ("llama4 prefill", 4, 40, 8, 512, 128))
+               ("llama4 prefill", 4, 40, 8, 512, 128),
+               ("kimi prefill", 4, 64, 8, 512, 112))
 # and non-causal, (path, B, H, KV, Sq, Sk, hd): the vlm cross prefill, 512
 # queries over 1600 image keys
 FLASH_CROSS_TIMED = (("vlm cross prefill", 4, 64, 8, 512, VLM_IMAGE_TOKENS,
                       128),)
+# the shapes whose SDPA backend is named beside its time: kimi-k2's, at
+# hd 112
+NAMED_BACKEND = ("kimi prefill", "kimi serving", "kimi attention")
+
+
+def sdpa_backend(sdpa, inputs) -> dict:
+    """Which of PyTorch's attention backends runs ``sdpa(*inputs)``:
+    ``sdpa(*inputs, choice=torch._fused_sdp_choice)`` hands the same
+    arguments to PyTorch's own pick among its backends (the backward runs
+    the forward's backend's backward)."""
+    from torch.nn.attention import SDPBackend
+    names = {int(b): n.lower() for n, b in SDPBackend.__members__.items()}
+    return {"library_backend":
+            names[int(sdpa(*inputs, choice=torch._fused_sdp_choice))]}
 
 
 def time_flash(device, gen):
@@ -1179,9 +1250,12 @@ def time_flash(device, gen):
                                                         causal=causal), sets)
         plain = time_ms(lambda q, k, v: FR.flash_attention_ref(
             q, k, v, causal=causal), sets, iters=5)
-        lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True), sets)
+        def sdpa(q, k, v, choice=F.scaled_dot_product_attention):
+            return choice(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), is_causal=causal,
+                          enable_gqa=True)
+        lib = time_ms(sdpa, sets)
+        named = sdpa_backend(sdpa, sets[0]) if path in NAMED_BACKEND else {}
         nbytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) \
             + 4 * B * H * Sq
         # QK^T and PV over the (q, k) pairs the mask keeps (causal: Sq = Sk)
@@ -1190,7 +1264,7 @@ def time_flash(device, gen):
         b_ms, b_by = bound(nbytes, ops)
         out.append({"path": path, "ms": ms, "plain_ms": plain,
                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                    "vs_library": ms / lib,
+                    "vs_library": ms / lib, **named,
                     "shape": f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
                              f"bf16 {'causal' if causal else 'non-causal'}"})
     return out
@@ -1199,14 +1273,16 @@ def time_flash(device, gen):
 # B3's main-path shapes: (path, B, H, KV, S, hd, lens), all bf16: a decode
 # step of yi-6b's ragged generate (32 layers' caches), of zamba2's generate,
 # every row on the one-chunk path, llama4-maverick's ragged generate (5
-# query heads a K/V head) and llama-3.2-vision's cross decode (every row
-# over all 1600 image rows)
+# query heads a K/V head), kimi-k2's (hd 112, 8 query heads a K/V head)
+# and llama-3.2-vision's cross decode (every row over all 1600 image rows)
 DECODE_TIMED = (("yi-6b serving", 4, 32, 4, SERVE_MAX_LEN, 128,
                  [n + N_NEW // 2 for n in PROMPT_LENS]),
                 ("zamba2 decode", 4, 32, 32, SERVE_MAX_LEN, 64,
                  [512 + N_NEW // 2] * 4),
                 ("one chunk", 4, 32, 4, SERVE_MAX_LEN, 128, [1, 17, 63, 64]),
                 ("llama4 serving", 4, 40, 8, SERVE_MAX_LEN, 128,
+                 [n + N_NEW // 2 for n in PROMPT_LENS]),
+                ("kimi serving", 4, 64, 8, SERVE_MAX_LEN, 112,
                  [n + N_NEW // 2 for n in PROMPT_LENS]),
                 ("vlm cross decode", 4, 64, 8, VLM_IMAGE_TOKENS, 128,
                  [VLM_IMAGE_TOKENS] * 4))
@@ -1232,16 +1308,18 @@ def time_decode(device, gen):
                      iters=64)
         plain = time_ms(lambda q, k, v: DR.decode_attention_ref(q, k, v, ln),
                         sets, iters=16)
-        lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True), sets, iters=64)
+        def sdpa(q, k, v, choice=F.scaled_dot_product_attention):
+            return choice(q[:, :, None], k.transpose(1, 2),
+                          v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+        lib = time_ms(sdpa, sets, iters=64)
+        named = sdpa_backend(sdpa, sets[0]) if path in NAMED_BACKEND else {}
         rows = sum(min(n, S) for n in lens)
         nbytes = 2 * (2 * rows * KV * hd + 2 * B * H * hd) + 4 * B
         ops = 4 * rows * H * hd
         b_ms, b_by = bound(nbytes, ops)
         shapes.append({"path": path, "ms": ms, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                       "vs_library": ms / lib,
+                       "vs_library": ms / lib, **named,
                        "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 "
                                 f"lens={lens}"})
     _, B, H, KV, S, hd, _ = DECODE_TIMED[0]
@@ -1253,6 +1331,60 @@ def time_decode(device, gen):
                           "ms": time_ms(lambda q, k, v: DO.decode_attention(
                               q, k, v, ln), sets, iters=64)})
     return shapes, by_chunks
+
+
+# B2a and B2b at kimi-k2's attention: (B, H, KV, S, hd), bf16, causal
+KIMI_BWD_TIMED = (2, 64, 8, 1024, 112)
+
+
+def time_bwd(device, gen, path, B, H, KV, S, hd) -> dict:
+    """B2a and B2b timed apart, the whole backward (delta, B2a, B2b), the
+    plain backward and SDPA's backward at one bf16 causal shape, with the
+    card's bounds: {kernel name: its entry's numbers}."""
+    bf = torch.bfloat16
+    scale = hd ** -0.5
+    def sdpa(qt, kt, vt, choice=F.scaled_dot_product_attention):
+        return choice(qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+
+    sets, full, lib_sets = [], [], []
+    for _ in range(4):
+        q, k, v, do = rand_like_cases(gen, [(B, S, H, hd), (B, S, KV, hd),
+                                            (B, S, KV, hd), (B, S, H, hd)],
+                                      bf, device)
+        o, lse = FO.flash_attention(q, k, v)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        sets.append((q, k, v, do, lse, delta))
+        full.append((q, k, v, o, lse, do))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_sets.append((sdpa(qt, kt, vt), qt, kt, vt, do.transpose(1, 2)))
+    ms_dq = time_ms(lambda *a: FO.flash_bwd_dq(*a, True, scale), sets)
+    ms_dkv = time_ms(lambda *a: FO.flash_bwd_dkv(*a, True, scale), sets)
+    # the whole backward as the train step calls it (delta, B2a, B2b),
+    # beside SDPA's, which also forms its delta
+    ms_bwd = time_ms(lambda *a: FO.flash_attention_bwd(*a), full)
+    plain = time_ms(lambda *a: FR.flash_attention_bwd_ref(*a), full, iters=5)
+
+    def sdpa_bwd(ot, qt, kt, vt, dot):
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    lib = time_ms(sdpa_bwd, lib_sets)
+    named = sdpa_backend(sdpa, lib_sets[0][1:4]) \
+        if path in NAMED_BACKEND else {}
+    pairs = B * H * S * (S + 1) / 2                    # causal (q, k) pairs
+    shape = f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"
+    out = {}
+    for name, ms, nbytes, ops in (
+            ("flash_bwd_dq", ms_dq,
+             2 * (3 * B * S * H * hd + 2 * B * S * KV * hd) + 8 * B * H * S,
+             3 * 2 * hd * pairs),           # S, dP and dS.K
+            ("flash_bwd_dkv", ms_dkv,
+             2 * (2 * B * S * H * hd + 4 * B * S * KV * hd) + 8 * B * H * S,
+             4 * 2 * hd * pairs)):          # S, dP, P^T.dO and dS^T.Q
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = {"path": path, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                     "bwd_ms": ms_bwd, **named, "shape": shape}
+    return out
 
 
 def time_kernels(device, errs, launches):
@@ -1299,46 +1431,18 @@ def time_kernels(device, errs, launches):
                                               "shape")},
                 "shapes": shapes, "ms_by_chunks": by_chunks})
 
-    # B2a and B2b at a gpt2-124m train step's attention: (8, 1024), 12 heads
-    B, H, KV, S, hd = TRAIN_B, 12, 12, TRAIN_S, 64
-    scale = hd ** -0.5
-    sets, full, lib_sets = [], [], []
-    for _ in range(4):
-        q, k, v, do = rand_like_cases(gen, [(B, S, H, hd), (B, S, KV, hd),
-                                            (B, S, KV, hd), (B, S, H, hd)],
-                                      bf, device)
-        o, lse = FO.flash_attention(q, k, v)
-        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-        sets.append((q, k, v, do, lse, delta))
-        full.append((q, k, v, o, lse, do))
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_sets.append((ot, qt, kt, vt, do.transpose(1, 2)))
-    ms_dq = time_ms(lambda *a: FO.flash_bwd_dq(*a, True, scale), sets)
-    ms_dkv = time_ms(lambda *a: FO.flash_bwd_dkv(*a, True, scale), sets)
-    # the whole backward as the train step calls it (delta, B2a, B2b),
-    # beside SDPA's, which also forms its delta
-    ms_bwd = time_ms(lambda *a: FO.flash_attention_bwd(*a), full)
-    plain = time_ms(lambda *a: FR.flash_attention_bwd_ref(*a), full, iters=5)
-    lib = time_ms(lambda ot, qt, kt, vt, dot: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), lib_sets)
-    pairs = B * H * S * (S + 1) / 2                    # causal (q, k) pairs
-    shape = f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"
+    # B2a and B2b at a gpt2-124m train step's attention: (8, 1024), 12
+    # heads; and at kimi-k2's attention, hd 112 (its hd-112 smoke trainer's
+    # path, at kimi's heads)
+    gpt2 = time_bwd(device, gen, "gpt2 train", TRAIN_B, 12, 12, TRAIN_S, 64)
+    kimi = time_bwd(device, gen, "kimi attention", *KIMI_BWD_TIMED)
     note = ("plain_ms and library_ms are each one timing of a call that "
             "computes dq, dk and dv together (flash_attention_bwd_ref; "
             "torch.autograd.grad of scaled_dot_product_attention); the "
             "same number stands in the B2a and the B2b entry, as does "
             "bwd_ms, the whole flash_attention_bwd call (delta, B2a and "
             "B2b), which is what compares with library_ms")
-    for name, ms, line, nbytes, ops in (
-            ("flash_bwd_dq", ms_dq, 138,
-             2 * (3 * B * S * H * hd + 2 * B * S * KV * hd) + 8 * B * H * S,
-             3 * 2 * hd * pairs),           # S, dP and dS.K
-            ("flash_bwd_dkv", ms_dkv, 181,
-             2 * (2 * B * S * H * hd + 4 * B * S * KV * hd) + 8 * B * H * S,
-             4 * 2 * hd * pairs)):          # S, dP, P^T.dO and dS^T.Q
-        b_ms, b_by = bound(nbytes, ops)
+    for name, line in (("flash_bwd_dq", 138), ("flash_bwd_dkv", 181)):
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/flash_attention/csrc/"
                               "flash_bwd.cu",
@@ -1347,9 +1451,8 @@ def time_kernels(device, errs, launches):
                     "launches": sum(n[name] for n in launches.values()),
                     "launches_by_path": {p: n[name]
                                          for p, n in launches.items()},
-                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-                    "bwd_ms": ms_bwd, "note": note, "shape": shape})
+                    "max_abs_err": errs[name], **gpt2[name],
+                    "note": note, "kimi": kimi[name]})
 
     # B4 at a Mamba2 block of zamba2-1.2b's prefill: (4, 512), 64 heads
     B, T, H, P, N = 4, 512, 64, 64, 64
@@ -1626,30 +1729,57 @@ def timed_steps(engine, prompts, prefill=None):
         profile_steps(engine, prefill, min(prefill_ms), decode_ms)
 
 
-def profile_steps(engine, prefill, prefill_ms: float, decode_ms: float):
+def profile_steps(engine, prefill, prefill_ms: float, decode_ms: float,
+                  tries: int = 3):
     """Device time by kernel over one ``prefill()`` and over 4 decode
-    steps, from torch.profiler (see :func:`device_window`)."""
-    logits, cache = prefill()
-    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps after a fresh one, from torch.profiler (see
+    :func:`device_window`). The decode window also holds
+    ``b3_calls_per_step``, B3's launches a step by its wrapper's count in
+    that window, and ``b3_readings``, its device kernels a step in each
+    window taken. torch.profiler can lose a kernel's record (it read 127
+    B3 kernels for 128 launches in one whole run on an NVIDIA H100 80GB
+    HBM3, 700.00 W), so a window that reads fewer device kernels than
+    launches is taken again, up to ``tries`` windows in all; the last one
+    taken is kept. A reading of as many or more is final."""
+    out = {"prefill": device_window(prefill, prefill_ms)}
+    readings = []
+    for _ in range(tries):
+        logits, cache = prefill()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        del logits
 
-    def decode4():
-        nonlocal cache, tok
-        for _ in range(4):
-            lg, cache = engine._decode(cache, tok)
-            tok = lg[:, -1].argmax(-1, keepdim=True)
+        def decode4():
+            nonlocal cache, tok
+            for _ in range(4):
+                lg, cache = engine._decode(cache, tok)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
 
-    return {"prefill": device_window(prefill, prefill_ms),
-            "decode_step": device_window(decode4, decode_ms, 4)}
+        before = DO.decode_attention.launches
+        step = device_window(decode4, decode_ms, 4)
+        calls = (DO.decode_attention.launches - before) / 4
+        del cache
+        if step is None:
+            break
+        readings.append(step["b3_kernels_per_step"])
+        step.update(b3_calls_per_step=calls, b3_readings=readings)
+        if readings[-1] >= calls:
+            break
+        print(f"decode window: {readings[-1]} B3 device kernels a step for "
+              f"{calls} launches; taken again")
+    out["decode_step"] = step
+    return out
 
 
 def small_model_matches_cpu(
         device, archs=((yi_6b, [16, 5, 11]), (zamba2_1p2b, None))) -> None:
     """Smoke width in float32: greedy tokens on the card (kernels) equal
     those on the CPU (plain versions), for each (config module, prompt
-    lengths) of ``archs``: by default yi-6b (ragged prompts) and
-    zamba2-1.2b (uniform prompts; the hybrid family takes no other)."""
-    for arch, lens in archs:
-        cfg = arch.smoke_config(dtype=torch.float32)
+    lengths[, smoke_config overrides]) of ``archs``: by default yi-6b
+    (ragged prompts) and zamba2-1.2b (uniform prompts; the hybrid family
+    takes no other)."""
+    for arch, lens, *over in archs:
+        cfg = arch.smoke_config(dtype=torch.float32, **(over[0] if over
+                                                         else {}))
         cpu = build_model(cfg, device="cpu")
         params = cpu.init(torch.Generator().manual_seed(0))
         prompts = np.random.RandomState(1).randint(1, cfg.vocab, (3, 16))
@@ -1665,16 +1795,16 @@ def small_model_matches_cpu(
               and n["decode_attention"] > 0
               and (n["ssd_scan"] > 0) == (cfg.family == "hybrid"),
               f"{cfg.name} smoke model on the card: launches {n}")
-        print(f"{cfg.name} smoke model f32: card tokens equal CPU tokens; "
-              f"card launches {n}")
+        print(f"{cfg.name} smoke model f32 (hd {cfg.hd}): card tokens equal "
+              f"CPU tokens; card launches {n}")
 
 
-def small_train_matches_cpu(device, cfg=None) -> None:
+def small_train_matches_cpu(device, cfg=None) -> dict:
     """Smoke width in float32: 3 train steps on the card (kernels) against
     3 on the CPU (plain versions), from the same params and batch; by
-    default gpt2-124m's smoke model. A vlm ``cfg`` trains with its gates at
-    VLM_GATE on seeded random image embeddings: B2a/B2b non-causal, 32
-    queries over its 16 image keys."""
+    default gpt2-124m's smoke model. Returns the readings. A vlm ``cfg``
+    trains with its gates at VLM_GATE on seeded random image embeddings:
+    B2a/B2b non-causal, 32 queries over its 16 image keys."""
     cfg = cfg or gpt2_124m.smoke_config(dtype=torch.float32)
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
@@ -1707,12 +1837,14 @@ def small_train_matches_cpu(device, cfg=None) -> None:
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     p_rel = max(((a.cpu() - b).norm() / b.norm()).item() for (_, a), (_, b)
                 in zip(flatten(p_gpu), flatten(p_cpu)))
-    print(f"{cfg.name} f32, 3 train steps: losses card {l_gpu} cpu "
-          f"{l_cpu}; loss rel err {loss_rel:.3g}, params rel L2 (worst "
-          f"leaf) {p_rel:.3g} (limit {SMOKE_TRAIN_REL}); card launches "
-          f"{n_gpu}")
+    print(f"{cfg.name} f32 (hd {cfg.hd}), 3 train steps: losses card "
+          f"{l_gpu} cpu {l_cpu}; loss rel err {loss_rel:.3g}, params rel L2 "
+          f"(worst leaf) {p_rel:.3g} (limit {SMOKE_TRAIN_REL}); card "
+          f"launches {n_gpu}")
     check(loss_rel <= SMOKE_TRAIN_REL and p_rel <= SMOKE_TRAIN_REL,
           f"{cfg.name}: card and CPU train steps differ")
+    return {"losses_card": l_gpu, "losses_cpu": l_cpu, "loss_rel": loss_rel,
+            "params_rel_l2": p_rel, "launches": n_gpu}
 
 
 def model_faults(n_layers: int):
@@ -2599,19 +2731,28 @@ def recording_attention(store: list):
 
 @contextmanager
 def recording_routes(store: list):
-    """Append each MoE block call's top-1 expert of every token to
-    ``store``."""
+    """Append each MoE block call's top-k experts of every token ((tokens,
+    k), by router logit) to ``store``."""
     saved = BL.moe_mlp
 
     def record(x, p, cfg):
         logits = x.reshape(-1, x.shape[-1]) @ p["router"].to(x.dtype)
-        store.append(logits.argmax(-1))
+        store.append(logits.argmax(-1, keepdim=True) if cfg.top_k == 1
+                     else logits.topk(cfg.top_k, dim=-1).indices)
         return saved(x, p, cfg)
     BL.moe_mlp = record
     try:
         yield
     finally:
         BL.moe_mlp = saved
+
+
+def routes_differ(got: list, ref: list) -> float:
+    """The share of (token, choice) expert choices of ``got`` that are not
+    among the same token's choices in ``ref`` (recording_routes' lists)."""
+    missing = sum(int((~(a[:, :, None] == b[:, None, :]).any(-1)).sum())
+                  for a, b in zip(got, ref))
+    return missing / sum(a.numel() for a in got)
 
 
 def one_key_late(q, k, v, causal=True, scale=None):
@@ -2675,17 +2816,62 @@ def step_launches(L: int, prefills: int, decodes: int) -> dict:
 
 def moe(device, card):
     """llama4-maverick (MoE) serving: the float32 llama4 and kimi-k2 smoke
-    models on the card against the CPU, then llama4-maverick at full width
-    (MOE_LAYERS of 48 layers, bf16 params): generate (uniform and ragged)
-    and the scheduler with exact launches; kernel path against plain path
-    (each layer's attention gated, the whole path printed); step times and
-    the profile. Returns (launches by path, the moe line, the engine), the
-    engine kept for the serving campaign phase."""
+    models on the card against the CPU (kimi-k2's also at its head dim
+    112), then llama4-maverick at full width (MOE_LAYERS of 48 layers, bf16
+    params) through :func:`moe_full_width`. Returns (launches by path, the
+    moe line, the engine), the engine kept for the serving campaign
+    phase."""
     small_model_matches_cpu(device, ((llama4_maverick, [16, 5, 11]),
-                                     (kimi_k2_1t, [16, 5, 11])))
-    cfg = moe_config()
-    L, V = cfg.n_layers, cfg.vocab
-    free_gb, total_gb, dry = memory_check(cfg, MOE_HEADROOM_GB, "moe")
+                                     (kimi_k2_1t, [16, 5, 11]),
+                                     (kimi_k2_1t, [16, 5, 11],
+                                      {"head_dim": 112})))
+    launches, reading, engine = moe_full_width(
+        device, card, moe_config(), "llama4", 48,
+        "llama4-maverick-400b-a17b at full width, 2 of 48 layers (d=5120, "
+        "40 heads, 8 KV heads, 128 experts of d_ff 8192, top-1, vocab "
+        "202048), random bf16 params")
+    return launches, {"moe": reading}, engine
+
+
+def kimi_config():
+    """kimi-k2-1t-a32b at full width, KIMI_LAYERS of its 61 layers, the
+    params in bf16."""
+    return kimi_k2_1t.config(n_layers=KIMI_LAYERS, param_dtype=torch.bfloat16)
+
+
+def kimi(device, card):
+    """kimi-k2-1t-a32b (head dim 112) serving, once llama4-maverick's engine
+    is freed: its float32 smoke model at head dim 112 for 3 train steps on
+    the card against the CPU (B2a/B2b at hd 112), then KIMI_LAYERS of its
+    61 layers at full width through :func:`moe_full_width`. Returns
+    (launches by path, the kimi line)."""
+    t0 = time.perf_counter()
+    train = small_train_matches_cpu(
+        device, kimi_k2_1t.smoke_config(dtype=torch.float32, head_dim=112))
+    cfg = kimi_config()
+    launches, reading, engine = moe_full_width(
+        device, card, cfg, "kimi", 61,
+        f"kimi-k2-1t-a32b at full width, {KIMI_LAYERS} of 61 layers "
+        f"(d=7168, 64 heads of hd 112, 8 KV heads, 384 experts of d_ff "
+        f"2048, top-8, vocab 163840), random bf16 params")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading.update(smoke_train_hd112=train,
+                   phase_wall_s=time.perf_counter() - t0)
+    return launches, {"kimi": reading}
+
+
+def moe_full_width(device, card, cfg, label: str, depth: int, desc: str):
+    """An MoE model at full width on the card, ``cfg.n_layers`` of its
+    ``depth`` layers with bf16 params, once the dry-run's need is free:
+    generate (uniform and ragged) and the scheduler with exact launches;
+    kernel path against plain path (each layer's attention gated, the
+    whole path and the expert choices that differ printed); step times and
+    the profile. ``desc`` names the model in the reading. Returns (launches
+    by path, the reading, the engine)."""
+    L, V, K = cfg.n_layers, cfg.vocab, cfg.top_k
+    free_gb, total_gb, dry = memory_check(cfg, MOE_HEADROOM_GB, label)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2696,8 +2882,8 @@ def moe(device, card):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    setup_gb = setup_agrees("moe", dry, base)
-    print(f"setup: llama4-maverick at full width, {L} of 48 layers "
+    setup_gb = setup_agrees(label, dry, base)
+    print(f"setup: {cfg.name} at full width, {L} of {depth} layers "
           f"({cfg.param_count() / 1e9:.3f} B params, {param_gb(cfg):.2f} "
           f"GB in bf16) initialised in {init_s:.1f} s; set-up peak "
           f"{setup_peak_gb:.2f} GB")
@@ -2727,29 +2913,33 @@ def moe(device, card):
         out[path] = run()
         torch.cuda.synchronize()
         seconds[path] = time.perf_counter() - t0
-        launches[f"llama4 {path}"] = n = read_counts()
+        launches[f"{label} {path}"] = n = read_counts()
         steps = (SCHED_REQUESTS, sched.decode_steps) \
             if path == "scheduler" else (1, N_NEW)
         want = step_launches(L, *steps)
-        print(f"llama4 {path} launches: {n}")
-        check(n == want, f"llama4 {path}: launches {n}, want exactly {want}")
+        print(f"{label} {path} launches: {n}")
+        check(n == want, f"{label} {path}: launches {n}, want exactly {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"moe: peak {peak_gb:.2f} GB (set-up {setup_peak_gb:.2f}) beside "
-          f"the dry-run's {dry['need_gb']:.2f} GB and the hand-set "
+    print(f"{label}: peak {peak_gb:.2f} GB (set-up {setup_peak_gb:.2f}) of "
+          f"the card's {total_gb:.2f}, beside the dry-run's "
+          f"{dry['need_gb']:.2f} GB and the hand-set "
           f"{param_gb(cfg) + MOE_HEADROOM_GB:.2f} GB")
+    check(max(peak_gb, setup_peak_gb) <= total_gb,
+          f"{label}: a peak of {max(peak_gb, setup_peak_gb):.2f} GB is "
+          f"more than the card's {total_gb:.2f} GB")
     uniform, ragged = out["generate uniform"], out["generate ragged"]
     for name, toks in (("uniform", uniform), ("ragged", ragged)):
         check(toks.shape == (4, 512 + N_NEW)
               and np.array_equal(toks[:, :512], prompts)
               and ((toks[:, 512:] >= 0) & (toks[:, 512:] < V)).all(),
-              f"llama4 {name} tokens {toks.shape}")
+              f"{label} {name} tokens {toks.shape}")
     for r, (prompt, n) in zip(sched.requests, requests):
         check(r.state == "done" and len(r.tokens) == n
               and all(0 <= t < V for t in r.tokens),
-              f"llama4 request {r.rid}: {r.state} with {len(r.tokens)}/{n} "
+              f"{label} request {r.rid}: {r.state} with {len(r.tokens)}/{n} "
               f"tokens")
     n_sched_tokens = sum(n for _, n in requests)
-    print(f"llama4 scheduler: {len(requests)} requests, {n_sched_tokens} "
+    print(f"{label} scheduler: {len(requests)} requests, {n_sched_tokens} "
           f"tokens, {sched.decode_steps} decode steps, {tp.sync_rounds} sync "
           f"rounds")
 
@@ -2761,17 +2951,17 @@ def moe(device, card):
         fast = teacher_forced(engine, prompts, feed)
     with plain_attention(), recording_routes(routes_p):
         slow = teacher_forced(engine, prompts, feed)
-    check(bool(torch.isfinite(fast).all()), "non-finite llama4 logits")
+    check(bool(torch.isfinite(fast).all()), f"non-finite {label} logits")
     whole = rel_l2(fast, slow)
     agree = (fast.argmax(-1) == slow.argmax(-1)).float().mean().item()
-    flips = sum(int((a != b).sum()) for a, b in zip(routes_k, routes_p)) \
-        / sum(a.numel() for a in routes_k)
+    flips = routes_differ(routes_k, routes_p)
+    del fast, slow, routes_k, routes_p
     per_layer = moe_attention_layers(records, cfg)
     faulted = moe_attention_layers(records, cfg, fault_layer=L - 1)
     del records
-    print(f"llama4 kernel vs plain (prefill + 4 decode steps): whole-path "
+    print(f"{label} kernel vs plain (prefill + 4 decode steps): whole-path "
           f"bf16 logits rel L2 {whole:.3g} (not gated), argmax agreement "
-          f"{agree:.3f}, tokens whose top-1 expert differs {flips:.4f}; "
+          f"{agree:.3f}, top-{K} expert choices that differ {flips:.4f}; "
           f"each layer's attention sublayer rel L2 "
           f"{[f'{r:.3g}' for r in per_layer]} (limit {MOE_ATTN_REL_L2})")
     print(f"  planted fault in layer {L - 1}'s plain attention (prefill one "
@@ -2779,21 +2969,19 @@ def moe(device, card):
           f"{[f'{r:.3g}' for r in faulted]}, rejected "
           f"{faulted[L - 1] > MOE_ATTN_REL_L2}")
     check(max(per_layer) <= MOE_ATTN_REL_L2,
-          "llama4: an attention sublayer's kernel path disagrees with its "
-          "plain path")
+          f"{label}: an attention sublayer's kernel path disagrees with its "
+          f"plain path")
     check(faulted[L - 1] > MOE_ATTN_REL_L2,
-          "llama4: the attention limit passes a one-layer planted fault")
+          f"{label}: the attention limit passes a one-layer planted fault")
 
     # step times at the uniform generate's shapes
     prefill_runs, decode_ms, profile = timed_steps(engine, prompts)
     step = profile["decode_step"]
     b3 = step and step["b3_kernels_per_step"]
-    check(b3 == L, f"llama4 decode step: {b3} B3 device kernels, not one "
+    check(b3 == L, f"{label} decode step: {b3} B3 device kernels, not one "
                    f"for each of {L} calls")
-    line = {"moe": {
-        "model": "llama4-maverick-400b-a17b at full width, 2 of 48 layers "
-                 "(d=5120, 40 heads, 8 KV heads, 128 experts of d_ff 8192, "
-                 "top-1, vocab 202048), random bf16 params",
+    reading = {
+        "model": desc,
         "card": card, "params_b": cfg.param_count() / 1e9,
         "params_gb": param_gb(cfg), "init_s": init_s,
         "free_gb_before": free_gb, "total_gb": total_gb,
@@ -2812,11 +3000,11 @@ def moe(device, card):
         "dryrun_need_gb": dry["need_gb"],
         "hand_set_need_gb": param_gb(cfg) + MOE_HEADROOM_GB,
         "whole_path_logits_rel_l2": whole, "argmax_agreement": agree,
-        "top1_expert_differs_share": flips,
+        f"top{K}_expert_differs_share": flips,
         "attention_layer_rel_l2": per_layer,
         "planted_fault_layer_rel_l2": faulted,
-        "launches": launches, "profile": profile}}
-    return launches, line, engine
+        "launches": launches, "profile": profile}
+    return launches, reading, engine
 
 
 # ---------------------------------------------------------------------------
@@ -4593,6 +4781,9 @@ def main() -> None:
     del moe_engine
     gc.collect()
     torch.cuda.empty_cache()
+    kimi_launches, kimi_line = kimi(device, card)
+    launches.update(kimi_launches)
+    torch.cuda.empty_cache()
     z_launches, zamba = zamba2(device, card)
     launches["zamba2 generate"] = z_launches["generate"]
     torch.cuda.empty_cache()
@@ -4627,6 +4818,7 @@ def main() -> None:
     print(json.dumps(ddp_line))
     print(json.dumps(campaign_line))
     print(json.dumps(moe_line))
+    print(json.dumps(kimi_line))
     print(json.dumps(serving_campaign_line))
     print(json.dumps(families_line))
     print(json.dumps(launch_line))

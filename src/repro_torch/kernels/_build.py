@@ -146,7 +146,7 @@ def load(name: str) -> ctypes.CDLL:
 
 # What the compiled kernels are instantiated for (see the csrc files).
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def dtype_code(t) -> int:

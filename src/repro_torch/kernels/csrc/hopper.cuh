@@ -36,11 +36,24 @@ constexpr float LN2 = 0.6931471805599453f;
 
 // A tile of HD columns is stored as NBOX boxes of [rows][CW] bf16, each box
 // as TMA writes it: rows of RB bytes, swizzled over the row (128, 64 or 32
-// bytes), which is the layout wgmma's descriptors name.
+// bytes), which is the layout wgmma's descriptors name. HD is a tile width
+// (16, 32, 64 or 128), not necessarily the tensor's head dim: a head dim of
+// 112 (kimi-k2) runs the 128-column tiles, the tensor maps' dimension 0 set
+// to 112 (`tensor_map`'s `cols`), so TMA fills columns 112..127 with zeros
+// on each load and leaves them out of each store. The zeros add nothing to
+// q.k, dO.v or any product over hd, the real scale comes in from the caller,
+// and the padded output columns are never written. That costs 16/112 = 14 %
+// more MMA work and shared memory than exact tiles, and needs no new wgmma
+// shape or box count; seven 16-column boxes (the 32-byte swizzle, an m64n112
+// `rs`) would have been exact, at seven TMA requests a tile and a new
+// instance of every body to check.
 template <int HD>
 struct Box {
   static constexpr int CW = HD < 64 ? HD : 64;  // columns of one box
   static constexpr int NBOX = HD / CW;
+  // a width the boxes do not tile (112 = 64 + 48) would drop its last
+  // columns without a word
+  static_assert(HD % CW == 0 && HD % 16 == 0, "boxes of CW columns must tile HD");
   static constexpr int RB = CW * 2;             // bytes of a box row
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   static constexpr CUtensorMapSwizzle SWIZZLE =

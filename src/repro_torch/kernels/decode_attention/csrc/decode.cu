@@ -43,6 +43,14 @@
 // length exit at once; the count of chunks comes from `lens` on the device.
 // The float32 body is two kernels: a partial kernel on the CUDA cores,
 // then a combine kernel.
+//
+// Head dims 16, 32, 64, 112 and 128, each its own instance of both bodies.
+// At hd = 112 (kimi-k2) the tensor-core body has 7 16-column tiles of hd
+// for its 4 warps' O^T = V^T P^T, 2 a warp, the 8th (warp 3's second) past
+// the end and skipped; a staged row of 112 + 8 bf16 is 15 16-byte pieces,
+// odd, as the ldmatrix phases want; each thread issues 7 of the chunk's
+// 16-byte K and V pieces. The CUDA-core body of G = 1 gives a row 16 lanes
+// of which 14 load.
 
 #include <atomic>
 
@@ -241,6 +249,7 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
     case 16: return launch<16>(p, stream);
     case 32: return launch<32>(p, stream);
     case 64: return launch<64>(p, stream);
+    case 112: return launch<112>(p, stream);
     case 128: return launch<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -425,7 +434,8 @@ __device__ __forceinline__ void mma_body(Stage<HD>& st, const bf16* q, const bf1
   cp_async_wait<0>();
   __syncthreads();
 
-  // O^T = V^T P^T: warp w takes hd tiles w, w + NW, ... over all rows
+  // O^T = V^T P^T: warp w takes hd tiles w, w + NW, ... over all rows; a
+  // tile past MT (hd = 112: warp 3's second) is skipped
   constexpr int MT = HD / 16, MINE = (MT + NW - 1) / NW;
   float acc[MINE][4] = {};
 #pragma unroll
@@ -461,28 +471,32 @@ __device__ __forceinline__ void mma_body(Stage<HD>& st, const bf16* q, const bf1
 
 // The CUDA-core body of G = 1: lanes read 16 bytes of a row each, straight
 // into registers, and each warp takes 16 rows; the result as mma_body's in
-// column 0.
+// column 0. A row's lanes are a power of two, so that the shuffles below
+// stay within them; at hd = 112 its last 2 of 16 hold zeros.
 template <int HD>
 __device__ __forceinline__ void simt_body(Stage<HD>& st, const bf16* q, const bf16* k,
                                           const bf16* v, const Params& p, int rows,
                                           int warp, int lane, int tid) {
-  constexpr int LPR = HD / 8;                // lanes a row
+  constexpr int CPR = HD / 8;                // 16-byte pieces of a row
+  constexpr int LPR = CPR > 8 ? 16 : CPR;    // lanes a row
   constexpr int RPP = 32 / LPR;              // rows a warp reads at once
   constexpr int PASSES = BS / NW / RPP;
+  static_assert(CPR <= LPR && (LPR == 16 || LPR == CPR), "lanes a row");
   const int col = lane % LPR * 8;
+  const bool live = lane % LPR < CPR;        // a lane with a piece of the row
   uint4 kr[PASSES], vr[PASSES];
 #pragma unroll
   for (int i = 0; i < PASSES; ++i) {
     const int j = BS / NW * warp + RPP * i + lane / LPR;
     kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (j < rows) {
+    if (j < rows && live) {
       kr[i] = *reinterpret_cast<const uint4*>(k + j * p.k_ss + col);
       vr[i] = *reinterpret_cast<const uint4*>(v + j * p.v_ss + col);
     }
   }
   float qf[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) qf[e] = __bfloat162float(q[col + e]);
+  for (int e = 0; e < 8; ++e) qf[e] = live ? __bfloat162float(q[col + e]) : 0.f;
   float s[PASSES], mx = NEG_INF;
 #pragma unroll
   for (int i = 0; i < PASSES; ++i) {
@@ -520,7 +534,7 @@ __device__ __forceinline__ void simt_body(Stage<HD>& st, const bf16* q, const bf
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
   }
-  if (lane < LPR) {
+  if (lane < CPR) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) st.ow[warp][col + e] = acc[e];
   }
@@ -664,6 +678,7 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
     case 16: return hopper::launch<16>(p, stream);
     case 32: return hopper::launch<32>(p, stream);
     case 64: return hopper::launch<64>(p, stream);
+    case 112: return hopper::launch<112>(p, stream);
     case 128: return hopper::launch<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }

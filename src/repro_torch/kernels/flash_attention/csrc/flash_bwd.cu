@@ -37,7 +37,7 @@
 // one kernel runs 5), but each is B1's loop turned one way or the other.
 // Two bodies, as in flash_fwd.cu:
 //
-// * bfloat16 (the training path; hd = 16, 32, 64, 128), on the building
+// * bfloat16 (the training path; hd = 16, 32, 64, 112, 128), on the building
 //   blocks of hopper.cuh. Both kernels are persistent, one block per SM
 //   walking work tiles of 128 rows, causal ones heaviest first, in snake
 //   order. Warpgroup 0 is the producer (setmaxnreg leaves it 24 registers,
@@ -67,6 +67,12 @@
 //     delta by column, that is by query, from the stage; then dV += P^T dO
 //     and dK += dS^T Q. A causal q tile that lies wholly before a
 //     warpgroup's first key is only released.
+//   hd = 112 (kimi-k2) runs the hd = 128 instances on tensor maps whose
+//   dimension 0 is 112, the loads' and the dQ, dK and dV stores' alike:
+//   TMA zero-fills columns 112..127 of Q, K, V and dO in shared memory, so
+//   S, dP and every gradient column below 112 are those of hd = 112, the
+//   gradients' columns 112..127 come out 0 and the stores leave them out
+//   (hopper.cuh, Box).
 // * float32: the products run on the CUDA cores in float32 over tiles
 //   staged transposed in shared memory, one block per (b, h, 64-row q tile)
 //   (B2a) or per (b, K/V head, 64-row k tile) (B2b), each thread owning 4
@@ -872,16 +878,19 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// HD is the tile width; `hd` (<= HD) the tensors' head dim, every map's
+// dimension 0, past which TMA reads zeros and writes nothing
 template <int HD>
-cudaError_t launch_dq(const Params& p, cudaStream_t st) {
+cudaError_t launch_dq(const Params& p, cudaStream_t st, int hd) {
   using C = DqCfg<HD>;
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BLOCK_M)
-      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, C::BN)
-      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, C::BN)
+  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BLOCK_M, hd)
+      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, C::BN, hd)
+      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, C::BN, hd)
       || !tensor_map<HD>(&tdo, p.dout, p.H, p.Sq, p.B, p.do_sh, p.do_ss, p.do_sb,
-                         BLOCK_M)
-      || !tensor_map<HD>(&tdq, p.dq, p.H, p.Sq, p.B, p.dq_sh, p.dq_ss, p.dq_sb, 16))
+                         BLOCK_M, hd)
+      || !tensor_map<HD>(&tdq, p.dq, p.H, p.Sq, p.B, p.dq_sh, p.dq_ss, p.dq_sb, 16,
+                         hd))
     return cudaErrorInvalidValue;
   int grid;
   const cudaError_t err = persistent_grid(
@@ -893,15 +902,15 @@ cudaError_t launch_dq(const Params& p, cudaStream_t st) {
 }
 
 template <int HD>
-cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
+cudaError_t launch_dkv(const Params& p, cudaStream_t st, int hd) {
   using C = DkvCfg<HD>;
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
-  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BQ)
-      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, BLOCK_M)
-      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, BLOCK_M)
-      || !tensor_map<HD>(&tdo, p.dout, p.H, p.Sq, p.B, p.do_sh, p.do_ss, p.do_sb, BQ)
-      || !tensor_map<HD>(&tdk, p.dk, p.KV, p.Sk, p.B, p.dk_sh, p.dk_ss, p.dk_sb, 16)
-      || !tensor_map<HD>(&tdv, p.dv, p.KV, p.Sk, p.B, p.dv_sh, p.dv_ss, p.dv_sb, 16))
+  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BQ, hd)
+      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, BLOCK_M, hd)
+      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, BLOCK_M, hd)
+      || !tensor_map<HD>(&tdo, p.dout, p.H, p.Sq, p.B, p.do_sh, p.do_ss, p.do_sb, BQ, hd)
+      || !tensor_map<HD>(&tdk, p.dk, p.KV, p.Sk, p.B, p.dk_sh, p.dk_ss, p.dk_sb, 16, hd)
+      || !tensor_map<HD>(&tdv, p.dv, p.KV, p.Sk, p.B, p.dv_sh, p.dv_ss, p.dv_sb, 16, hd))
     return cudaErrorInvalidValue;
   int grid;
   const cudaError_t err = persistent_grid(
@@ -924,16 +933,17 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
   return cudaGetLastError();
 }
 
-template <int HD>
+// HD is the head dim, TW the bf16 body's tile width (hopper.cuh, Box)
+template <int HD, int TW = HD>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t st) {
-  if (dtype == 1) return hopper::launch_dq<HD>(p, st);
+  if (dtype == 1) return hopper::launch_dq<TW>(p, st, HD);
   const dim3 grid((p.Sq + BM - 1) / BM, p.H, p.B);
   return launch(&simt::dq_kernel<HD>, simt::dq_smem<HD>(), grid, p, st);
 }
 
-template <int HD>
+template <int HD, int TW = HD>
 cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t st) {
-  if (dtype == 1) return hopper::launch_dkv<HD>(p, st);
+  if (dtype == 1) return hopper::launch_dkv<TW>(p, st, HD);
   const dim3 grid((p.Sk + BM - 1) / BM, p.KV, p.B);
   return launch(&simt::dkv_kernel<HD>, simt::dkv_smem<HD>(), grid, p, st);
 }
@@ -945,6 +955,9 @@ cudaError_t dispatch(const Params& p, int which, int dtype, int hd, cudaStream_t
     case 16: return which == 0 ? launch_dq<16>(p, dtype, st) : launch_dkv<16>(p, dtype, st);
     case 32: return which == 0 ? launch_dq<32>(p, dtype, st) : launch_dkv<32>(p, dtype, st);
     case 64: return which == 0 ? launch_dq<64>(p, dtype, st) : launch_dkv<64>(p, dtype, st);
+    // bf16 on 128-column tiles
+    case 112: return which == 0 ? launch_dq<112, 128>(p, dtype, st)
+                                : launch_dkv<112, 128>(p, dtype, st);
     case 128: return which == 0 ? launch_dq<128>(p, dtype, st) : launch_dkv<128>(p, dtype, st);
   }
   return cudaErrorInvalidValue;

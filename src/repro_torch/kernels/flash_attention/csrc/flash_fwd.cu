@@ -22,7 +22,7 @@
 // m, l and the accumulator in VMEM scratch from one grid step to the next.
 // On Hopper blocks run in parallel and carry nothing. Two bodies:
 //
-// * bfloat16 (every model's path; hd = 16, 32, 64, 128): persistent, one
+// * bfloat16 (every model's path; hd = 16, 32, 64, 112, 128): persistent, one
 //   block per SM walking work tiles of 128 query rows of one (b, h), the
 //   causal ones heaviest first so the light ones fill the end. Warpgroup 0
 //   is the producer: one thread TMA-loads each tile's Q and its K/V tiles
@@ -50,7 +50,10 @@
 //   128 is two boxes); TMA's zero fill masks the rows past Sq and Sk, and
 //   its stores skip them. cuTensorMapEncodeTiled comes from the driver
 //   through cudaGetDriverEntryPointByVersion, so the library needs no
-//   -lcuda.
+//   -lcuda. hd = 112 (kimi-k2) runs the hd = 128 instance on maps whose
+//   dimension 0 is 112: TMA zero-fills columns 112..127 of Q, K and V in
+//   shared memory and leaves them out of O's store (hopper.cuh, Box), so
+//   it has the 128 instance's 64-key tiles, registers and lazy rescaling.
 // * float32: one block per (b, h, 64-row q tile) loops over the K/V tiles
 //   with m, l and the accumulator in registers, the products on the CUDA
 //   cores over 64-row K/V tiles staged in shared memory, each thread
@@ -536,13 +539,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// HD is the tile width; `hd` (<= HD) the tensors' head dim, the maps'
+// dimension 0, past which TMA reads zeros and writes nothing
 template <int HD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(const Params& p, cudaStream_t stream, int hd = HD) {
   CUtensorMap tq, tk, tv, to;
-  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BLOCK_M)
-      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, Cfg<HD>::BN)
-      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, Cfg<HD>::BN)
-      || !tensor_map<HD>(&to, p.o, p.H, p.Sq, p.B, p.o_sh, p.o_ss, p.o_sb, 16))
+  if (!tensor_map<HD>(&tq, p.q, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BLOCK_M, hd)
+      || !tensor_map<HD>(&tk, p.k, p.KV, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, Cfg<HD>::BN, hd)
+      || !tensor_map<HD>(&tv, p.v, p.KV, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, Cfg<HD>::BN, hd)
+      || !tensor_map<HD>(&to, p.o, p.H, p.Sq, p.B, p.o_sh, p.o_ss, p.o_sb, 16, hd))
     return cudaErrorInvalidValue;
   int grid;
   const cudaError_t err = persistent_grid(
@@ -561,6 +566,7 @@ cudaError_t dispatch(const Params& p, int dtype, int hd, cudaStream_t st) {
       case 16: return simt::launch<16>(p, st);
       case 32: return simt::launch<32>(p, st);
       case 64: return simt::launch<64>(p, st);
+      case 112: return simt::launch<112>(p, st);
       case 128: return simt::launch<128>(p, st);
     }
   } else if (dtype == 1) {
@@ -568,6 +574,7 @@ cudaError_t dispatch(const Params& p, int dtype, int hd, cudaStream_t st) {
       case 16: return hopper::launch<16>(p, st);
       case 32: return hopper::launch<32>(p, st);
       case 64: return hopper::launch<64>(p, st);
+      case 112: return hopper::launch<128>(p, st, 112);  // 128-column tiles
       case 128: return hopper::launch<128>(p, st);
     }
   }

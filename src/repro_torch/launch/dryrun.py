@@ -47,7 +47,8 @@ on it: it computes nothing on any device.
 
 A cell is skipped, with its reason, where the reference skips it
 (long_500k for full-attention archs), where the card's kernels would
-refuse its step (kimi-k2's head dim 112), and for the hybrid and rwkv6
+refuse its step (a head dim outside ``HEAD_DIMS``; none of the configs
+has one now that kimi-k2's 112 is in), and for the hybrid and rwkv6
 train cells (their plain scan backward makes the trace take most of an
 hour).
 """
@@ -445,8 +446,7 @@ def traceable(cfg, shape: C.Shape):
     its trace would take most of an hour."""
     if cfg.family != "rwkv6" and cfg.hd not in HEAD_DIMS:
         return False, (f"head dim {cfg.hd}: the attention kernels take "
-                       f"{HEAD_DIMS} (ROADMAP A23), so the card refuses "
-                       f"the step")
+                       f"{HEAD_DIMS}, so the card refuses the step")
     if shape.kind == "train" and cfg.family in ("hybrid", "rwkv6"):
         return False, (f"the plain scan backward steps through "
                        f"{shape.seq_len} tokens one at a time on meta (~20 "

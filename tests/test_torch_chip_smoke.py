@@ -38,7 +38,11 @@ def _id(case):
 
 def test_edge_cases_cover_both_head_dims_and_layouts():
     hds = {c[6] for c in EDGE_CASES}
-    assert hds == {64, 128}
+    assert hds == {64, 112, 128}        # kimi-k2's 112: 128-column tiles
+    for hd in hds:
+        mine = [c for c in EDGE_CASES if c[6] == hd]
+        assert {127, 128, 129, 255, 257} <= {c[4] for c in mine}
+        assert any(c[9] == "fused" for c in mine)
     assert {c[9] for c in EDGE_CASES} == {"contiguous", "fused"}
     lengths = {c[4] for c in EDGE_CASES} | {c[5] for c in EDGE_CASES}
     assert {127, 128, 129, 255, 257} <= lengths
@@ -83,10 +87,10 @@ def _bwd_id(case):
 
 
 def test_bwd_edge_cases_cover_head_dims_orientations_gqa_and_layouts():
-    assert {c[6] for c in BWD_EDGE_CASES} == {64, 128}
+    assert {c[6] for c in BWD_EDGE_CASES} == {64, 112, 128}
     assert all(c[7] == torch.bfloat16 for c in BWD_EDGE_CASES)
     assert {c[9] for c in BWD_EDGE_CASES} == {"contiguous", "fused"}
-    for hd in (64, 128):
+    for hd in (64, 112, 128):
         mine = [c for c in BWD_EDGE_CASES if c[6] == hd]
         lengths = {c[4] for c in mine} | {c[5] for c in mine}
         assert {127, 128, 129, 255, 257} <= lengths
@@ -715,6 +719,180 @@ def test_moe_attention_check_rejects_a_one_layer_fault():
         > CS.MOE_ATTN_REL_L2
 
 
+def test_kimi_memory_reckoning_is_two_layers_in_bf16():
+    """KIMI_LAYERS of kimi-k2's 61 layers in bf16: 72.82 GB at 2 (3 would
+    not fit the card), head dim 112, top-8 of 384 experts."""
+    cfg = CS.kimi_config()
+    assert CS.KIMI_LAYERS == 2
+    assert (cfg.n_layers, cfg.param_dtype) == (2, torch.bfloat16)
+    assert (cfg.hd, cfg.n_heads // cfg.n_kv_heads) == (112, 8)
+    assert (cfg.n_experts, cfg.top_k) == (384, 8)
+    assert round(CS.param_gb(cfg), 2) == 72.82
+    one = CS.kimi_k2_1t.config(n_layers=1, param_dtype=torch.bfloat16)
+    assert round(CS.param_gb(one), 2) == 38.76
+    three = CS.kimi_k2_1t.config(n_layers=3, param_dtype=torch.bfloat16)
+    assert CS.param_gb(three) > 80
+
+
+def test_kimi_cases_cover_head_dim_112():
+    """B1, B2a/B2b and B3 hold kimi-k2's shapes at hd 112 against their
+    plain versions: its prefill and admission, the tile edges and float32;
+    its decode (serving lengths, every row in one chunk, float32) and G = 1
+    at hd 112; its attention's backward in both dtypes and ragged causal.
+    The timed shapes include kimi-k2's, with the SDPA backend named."""
+    cfg = CS.kimi_config()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf, f32 = torch.bfloat16, torch.float32
+    flash = [c for c in CS.flash_cases() if c[6] == hd]
+    got = {c[1:] for c in flash}
+    for B, S in ((4, 512), (1, CS.SCHED_PREFILL)):
+        assert (B, H, KV, S, S, hd, bf, True, "contiguous") in got
+    assert any(c[7] == f32 and c[2] > c[3] and c[4] != c[5] for c in flash)
+    assert {c[0] for c in flash if c[0].startswith("tile edge")} \
+        >= {f"tile edge S={S}" for S in (127, 128, 129, 255, 257)}
+    decode = {c[0]: c[1:] for c in CS.decode_cases() if c[5] == hd}
+    lens = [n + CS.N_NEW // 2 for n in CS.PROMPT_LENS]
+    assert decode["kimi serving"] == (4, H, KV, CS.SERVE_MAX_LEN, hd, bf,
+                                      lens)
+    assert decode["kimi serving f32"][5] == f32
+    assert max(decode["kimi one chunk each"][6]) == 64
+    assert any(h == kv for _, h, kv, *_ in decode.values())      # G = 1
+    bwd = {c[1:] for c in CS.bwd_cases() if c[6] == hd}
+    for dt in (bf, f32):
+        assert (2, H, KV, 1024, 1024, hd, dt, True, "contiguous") in bwd
+    assert any(c[3] % 128 and c[7] for c in bwd)       # ragged causal
+    assert ("kimi prefill", 4, H, KV, 512, hd) in CS.FLASH_TIMED
+    assert any(t[0] == "kimi serving" and t[1:6] ==
+               (4, H, KV, CS.SERVE_MAX_LEN, hd) for t in CS.DECODE_TIMED)
+    assert CS.KIMI_BWD_TIMED == (2, H, KV, 1024, hd)
+    assert {"kimi prefill", "kimi serving", "kimi attention"} \
+        == set(CS.NAMED_BACKEND)
+
+
+def test_sdpa_backend_names_pytorchs_own_choice():
+    """The backend named beside SDPA's time is PyTorch's pick for the same
+    arguments (on the CPU here), a name of ``SDPBackend``."""
+    from torch.nn.attention import SDPBackend
+    q, k = torch.randn(2, 16, 8, 112), torch.randn(2, 16, 2, 112)
+
+    def sdpa(q, k, v, choice=torch.nn.functional.scaled_dot_product_attention):
+        return choice(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    got = CS.sdpa_backend(sdpa, (q, k, k))["library_backend"]
+    want = int(torch._fused_sdp_choice(q.transpose(1, 2), k.transpose(1, 2),
+                                       k.transpose(1, 2), is_causal=True,
+                                       enable_gqa=True))
+    assert got == {int(b): n.lower()
+                   for n, b in SDPBackend.__members__.items()}[want]
+
+
+def _kimi_smoke_engine(n_layers=2):
+    cfg = CS.kimi_k2_1t.smoke_config(dtype=torch.float32, head_dim=112,
+                                     n_layers=n_layers)
+    model = CS.build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    return cfg, CS.ServeEngine(model, params, max_len=40, device="cpu")
+
+
+def test_kimi_launch_counts_are_one_a_layer_and_step():
+    """The counts the kimi phase wants, on the CPU at smoke width and hd
+    112 (where the wrappers' plain versions count): one flash attention a
+    layer and prefill, one decode attention a layer and decode step,
+    nothing else, for generate and for the scheduler's admissions."""
+    cfg, engine = _kimi_smoke_engine()
+    L = cfg.n_layers
+    prompts = np.random.RandomState(0).randint(1, cfg.vocab, (4, 12))
+    CS.zero_counts()
+    engine.generate(prompts, 5)
+    plain = CS.read_counts()
+    want = CS.step_launches(L, 1, 5)
+    assert plain["flash_attention_ref"] == want["flash_attention"] == L
+    assert plain["decode_attention_ref"] == want["decode_attention"] == 5 * L
+    assert all(plain[k] == 0 for k in CS.KERNELS)
+    assert sum(plain.values()) == L + 5 * L
+    tp = CS.TPServeEngine(engine.model, None, world=None, max_len=40,
+                          local=engine, device="cpu")
+    sched = CS.RequestScheduler(tp, n_slots=2, prefill_len=16)
+    for n in (3, 6, 4):
+        sched.submit(prompts[0, :n + 4], n)
+    CS.zero_counts()
+    sched.run()
+    plain = CS.read_counts()
+    assert plain["flash_attention_ref"] == 3 * L
+    assert plain["decode_attention_ref"] == sched.decode_steps * L
+
+
+def test_kimi_attention_check_rejects_a_one_layer_fault_at_hd_112():
+    """kimi-k2's smoke model at hd 112 on the CPU: each layer's attention on
+    the recorded inputs reads 0, a planted fault in one layer is rejected
+    in that layer alone, and top-2 routes are recorded a token."""
+    cfg, engine = _kimi_smoke_engine(n_layers=3)
+    rng = np.random.RandomState(1)
+    prompts = rng.randint(1, cfg.vocab, size=(2, 30)).astype(np.int32)
+    feed = [torch.as_tensor(rng.randint(1, cfg.vocab, size=(2, 1)))
+            for _ in range(4)]
+    records, routes = [], []
+    with CS.recording_attention(records), CS.recording_routes(routes):
+        CS.teacher_forced(engine, prompts, feed)
+    assert len(records) == len(routes) == 5 * cfg.n_layers
+    assert routes[0].shape == (60, cfg.top_k)
+    assert CS.routes_differ(routes, routes) == 0.0
+    assert CS.moe_attention_layers(records, cfg) == [0.0] * cfg.n_layers
+    faulted = CS.moe_attention_layers(records, cfg, fault_layer=2)
+    assert faulted[0] == faulted[1] == 0.0
+    assert faulted[2] > CS.MOE_ATTN_REL_L2
+
+
+def test_routes_differ_counts_choices_not_positions():
+    """One expert of one token's top-3 changed is one choice in six, in
+    whatever order the choices come."""
+    a = [torch.tensor([[1, 2, 3], [4, 5, 6]])]
+    b = [torch.tensor([[3, 1, 2], [6, 7, 4]])]
+    assert CS.routes_differ(a, b) == pytest.approx(1 / 6)
+    assert CS.routes_differ([torch.tensor([[2], [5]])],
+                            [torch.tensor([[2], [4]])]) == 0.5
+
+
+class _Engine:
+    """Stands in for a ServeEngine: each decode step launches B3 once for
+    each of ``layers`` layers, as counted by the wrapper."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def _decode(self, cache, tok):
+        CS.DO.decode_attention.launches += self.layers
+        return torch.zeros(tok.shape[0], 1, 5), cache
+
+
+@pytest.mark.parametrize("kernels, kept, windows", [
+    ([32.0], 32.0, 1),                  # one kernel a launch: final
+    ([31.75, 32.0], 32.0, 2),           # one record lost, then whole
+    ([31.75, 31.75, 31.75], 31.75, 3),  # short every time: kept short
+    ([64.0], 64.0, 1),                  # two kernels a launch: final
+])
+def test_profile_steps_takes_a_short_decode_window_again(monkeypatch, kernels,
+                                                         kept, windows):
+    """A decode window whose profiler reads fewer B3 device kernels than
+    the wrapper counted launches is taken again, at most three in all; a
+    reading of as many or more ends it. The kept reading is what the
+    serving phases hold to one a layer, so 31.75 and 64 still fail them."""
+    planted = iter(kernels)
+
+    def window(fn, wall_ms, n=1, shapes=False):
+        fn()
+        return {"b3_kernels_per_step": next(planted) if n == 4 else 0.0}
+
+    monkeypatch.setattr(CS, "device_window", window)
+    monkeypatch.setattr(CS.DO.decode_attention, "launches", 0, raising=False)
+    prefill = lambda: (torch.zeros(4, 3, 5), None)  # noqa: E731
+    step = CS.profile_steps(_Engine(32), prefill, 1.0, 1.0)["decode_step"]
+    assert step["b3_kernels_per_step"] == kept
+    assert step["b3_calls_per_step"] == 32
+    assert step["b3_readings"] == kernels[:windows]
+    assert CS.DO.decode_attention.launches == 4 * 32 * windows
+
+
 def test_tp_serving_run_masks_a_nic_kill_at_smoke_width():
     """The full-width TP run's loop, on the CPU at smoke width: over the
     world, healthy and with the NIC killed mid-decode, the tokens equal
@@ -943,7 +1121,7 @@ def test_launch_memory_cell_rejects_a_planted_low_prediction_at_decode(
         CS.memory_cell("yi-6b decode", cfg, shape, None, {}, params)
 
 
-@pytest.mark.parametrize("phase", ["moe", "vlm"])
+@pytest.mark.parametrize("phase", ["moe", "vlm", "kimi"])
 def test_memory_check_needs_the_setup_peak_and_the_prefill_step(
         phase, monkeypatch):
     """``memory_check`` needs the larger of the set-up's traced peak (the
@@ -951,7 +1129,8 @@ def test_memory_check_needs_the_setup_peak_and_the_prefill_step(
     refuses a card with less free: the vlm's set-up (32.6 GB) is ~10 GB
     above its prefill step."""
     cfg, headroom = {"moe": (CS.moe_config(), CS.MOE_HEADROOM_GB),
-                     "vlm": (CS.vlm_config(), CS.VLM_HEADROOM_GB)}[phase]
+                     "vlm": (CS.vlm_config(), CS.VLM_HEADROOM_GB),
+                     "kimi": (CS.kimi_config(), CS.MOE_HEADROOM_GB)}[phase]
     monkeypatch.setattr(CS.torch.cuda, "mem_get_info",
                         lambda: (int(80e9), int(85e9)))
     free, total, dry = CS.memory_check(cfg, headroom, phase)

@@ -25,7 +25,8 @@ from repro_torch.kernels.rwkv6_scan import ref as RR  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as SO  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as SR  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
-from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
+                                     make_production_mesh)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import flatten, serving_params  # noqa: E402
 
@@ -169,8 +170,8 @@ def test_decode_workspace_formula_is_the_librarys():
 
 
 def test_meta_branch_refuses_what_the_card_refuses():
-    q, k, v = _meta(*_qkv(hd=112))
-    with pytest.raises(ValueError, match="head dim 112"):
+    q, k, v = _meta(*_qkv(hd=96))                   # no kernel at hd 96
+    with pytest.raises(ValueError, match="head dim 96"):
         FO.flash_attention(q, k, v)
     x = torch.empty(1, 8, 3, 48, device="meta")        # P = 48: no kernel
     with pytest.raises(ValueError, match="the kernel takes"):
@@ -374,8 +375,13 @@ def test_run_cell_scales_the_counted_flops_to_the_global_batch():
 def test_run_cell_skips_with_a_reason():
     r = D.run_cell("yi-6b", "long_500k", False, verbose=False)
     assert r["skipped"] and "sub-quadratic" in r["reason"]
+    # kimi-k2's head dim 112 is one the kernels take: its cell is traced,
+    # its arguments the bytes the sharding rules give them
     r = D.run_cell("kimi-k2-1t-a32b", "decode_32k", True, verbose=False)
-    assert r["skipped"] and "head dim 112" in r["reason"]
+    assert not r["skipped"]
+    assert r["memory"]["argument_size_in_bytes"] == D.argument_bytes(
+        D.cell_config("kimi-k2-1t-a32b"), C.SHAPES["decode_32k"],
+        make_production_mesh(multi_pod=True))
     r = D.run_cell("zamba2-1.2b", "train_4k", False, verbose=False)
     assert r["skipped"] and "plain scan backward" in r["reason"]
 

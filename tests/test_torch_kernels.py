@@ -43,6 +43,14 @@ FLASH_SHAPES = [
     (1, 2, 1, 257, 257, 128, True),
     (1, 2, 1, 255, 129, 128, False),    # non-causal Sq > Sk
     (1, 2, 2, 129, 255, 64, False),     # non-causal Sq < Sk
+    # kimi-k2's head dim 112 (the bf16 body's 128-column tiles, zero-filled
+    # past 112): causal GQA across the 64-key tile, and ragged non-causal
+    # Sq < Sk. kimi-k2's own 8 query heads a K/V head are held at hd 112
+    # in test_torch_kimi.py and in DECODE_SHAPES: the float32 train check
+    # below against float64 reads 1.9 of its limit in dK at G = 8 and 40
+    # tokens (1.4 at hd 64): float32 rounding of the 8 heads' sum
+    (1, 4, 2, 65, 65, 112, True),
+    (2, 2, 2, 33, 70, 112, False),
 ]
 
 DECODE_SHAPES = [
@@ -51,6 +59,8 @@ DECODE_SHAPES = [
     (1, 4, 4, 96, 32, 50),
     (3, 8, 2, 128, 16, 128),
     (1, 2, 1, 40, 8, 7),
+    # kimi-k2's head dim 112 and 8 query heads a K/V head
+    (2, 8, 1, 96, 112, 77),
 ]
 
 
