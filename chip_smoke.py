@@ -110,7 +110,24 @@ and read just after, that each went through the kernels:
   and the peaks ordered none > dots > full; gpt2-124m's params
   distributed by their ``param_specs`` over a one-rank NCCL group, each
   local shard equal to its param. The moe and families phases start
-  only with the dry-run's bytes a device of their prefill step free.
+  only with the dry-run's bytes a device of their prefill step free;
+* the examples phase: the port's own entry points
+  (``repro_torch.examples``) through their ``main(argv)``, as a user runs
+  them: ``train_ddp_shift --full --steps 6 --fail-at 3`` (gpt2-124m at
+  full width, 2 ranks x 4 x 512 tokens, host1's first NIC killed after
+  step 3) with >= 1 fallback, no restart and exactly 48 flash-attention
+  launches and 24 of each backward kernel a step; the same with
+  ``--baseline``, one restart and the run reaching step 6 (the crashed
+  step's launches counted too); then ``serve_decode`` for each of the 11
+  archs at its defaults (smoke scale, bf16), ``--tp`` for the dense,
+  audio and moe ones, with exactly one B1 an attention layer a prefill,
+  one B3 a layer a decode step, zamba2's B4 and rwkv6's B5 a block a
+  prefill, 0 plain, and the TP line's sync rounds and peak live
+  collectives equal to the same run's on the CPU; each run teacher-forced
+  again with its own tokens, its bf16 logits on the kernels within
+  LOGITS_REL_L2 of the plain path's, its greedy tokens the run's, and a
+  planted fault for each kernel of its path past that limit. The
+  examples' B1, B3 and B4 shapes are also kernel cases ("examples ...").
 
 It holds the kernel path against the plain path at full width (logits
 while serving, loss and gradients while training; for zamba2 and rwkv6
@@ -154,6 +171,12 @@ the train step, and prints:
 * a ``{"launch": ...}`` line: the anchors, each memory cell's predicted,
   measured and ``MemoryLog``-on-the-card bytes, remat's bitwise
   equality, launches and peaks, the DTensor check, the phase's wall s;
+* a ``{"examples": ...}`` line: each entry run's argv, wall s, tokens/s
+  and launches; the training runs' fallbacks, restarts, recoveries,
+  virtual gradient-sync ms a step and losses; each ``serve_decode`` run's
+  TP statistics on the card and the CPU and its logits reading; the
+  phase's wall s; then the
+  whole script's wall s;
 * a ``{"kernels": [...]}`` line: per kernel its launches on the main
   paths (in all, and on each path), its error against the plain version,
   its time, the plain version's and one PyTorch call's time at the same
@@ -181,6 +204,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -188,7 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -204,6 +228,8 @@ from repro_torch.configs import (deepseek_67b, gpt2_124m,  # noqa: E402
                                  kimi_k2_1t, llama32_vision_90b,
                                  llama4_maverick, musicgen_medium, rwkv6_3b,
                                  starcoder2_3b, yi_6b, zamba2_1p2b)
+from repro_torch.examples import serve_decode as EX_SERVE  # noqa: E402
+from repro_torch.examples import train_ddp_shift as EX_TRAIN  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
@@ -225,13 +251,14 @@ from repro_torch.launch.mesh import (device_mesh,  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.lm import (flatten, serving_params,  # noqa: E402
-                                   unflatten, vlm_layout)
+from repro_torch.models.lm import (flatten, hybrid_layout,  # noqa: E402
+                                   serving_params, unflatten, vlm_layout)
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.scenarios import SCENARIOS, run_scenario  # noqa: E402
 from repro_torch.scenarios import engine as SE  # noqa: E402
 from repro_torch.serving import (RequestScheduler, ServeEngine,  # noqa: E402
                                  TPServeEngine)
+from repro_torch.serving.engine import KV_CACHE_FAMILIES  # noqa: E402
 from repro_torch.train import trainer as TR  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core
@@ -592,11 +619,22 @@ def flash_cases():
                   ("fused qkv", 2, 8, 2, 257, 257, hd, bf, True, "fused")]
     # 5 x 9 x 5 = 225 blocks: not a whole number of waves on 132 SMs
     cases.append(("225 blocks", 5, 9, 3, 640, 640, 128, bf, True))
+    # the examples phase: serve_decode's prefill of each arch's bf16 smoke
+    # model (hd 16, zamba2's shared attention hd 32) and the vlm's cross
+    # blocks over its image keys
+    for (H, KV, hd), archs in example_heads().items():
+        cases.append((f"examples prefill ({example_names(archs)})", EX_BATCH,
+                      H, KV, EX_PROMPT, EX_PROMPT, hd, bf, True))
+    vlm = CC.smoke_config("llama-3.2-vision-90b")
+    cases.append(("examples vlm cross prefill", EX_BATCH, vlm.n_heads,
+                  vlm.n_kv_heads, EX_PROMPT, vlm.n_image_tokens, vlm.hd, bf,
+                  False))
     return [c if len(c) == 10 else (*c, "contiguous") for c in cases]
 
 
 def decode_cases():
     bf, f32 = torch.bfloat16, torch.float32
+    vlm = CC.smoke_config("llama-3.2-vision-90b")
     # (label, B, H, KV, S, hd, dtype, lens)
     return [("yi-6b ragged lengths", 4, 32, 4, 1024, 128, bf,
              [1, 300, 777, 1024]),
@@ -656,7 +694,13 @@ def decode_cases():
              [1, 17, 63, 64]),
             ("kimi serving f32", 4, 64, 8, SERVE_MAX_LEN, 112, f32,
              [n + N_NEW // 2 for n in PROMPT_LENS]),
-            ("MHA hd=112", 2, 8, 8, 300, 112, bf, [300, 77])]
+            ("MHA hd=112", 2, 8, 8, 300, 112, bf, [300, 77])] \
+        + [(f"examples decode ({example_names(archs)})", EX_BATCH, H, KV,
+            EX_MAX_LEN, hd, bf, EX_LENS)
+           for (H, KV, hd), archs in example_heads().items()] \
+        + [("examples vlm cross decode", EX_BATCH, vlm.n_heads,
+            vlm.n_kv_heads, vlm.n_image_tokens, vlm.hd, bf,
+            [vlm.n_image_tokens] * EX_BATCH)]
 
 
 def rand_like_cases(gen, shapes, dtype, device):
@@ -1067,7 +1111,10 @@ def ssd_cases():
             ("one chunk and a step", 2, 65, 8, 64, 64, bf, "strided"),
             ("one chunk and a step", 2, 65, 8, 64, 64, f32, "contiguous"),
             ("smoke width", 2, 77, 8, 32, 16, f32, "contiguous"),
-            ("smoke width", 3, 130, 8, 32, 16, bf, "strided")]
+            ("smoke width", 3, 130, 8, 32, 16, bf, "strided"),
+            # the examples phase: zamba2's smoke prefill in serve_decode
+            ("examples zamba2 prefill", EX_BATCH, EX_PROMPT, 8, 32, 16, bf,
+             "model")]
 
 
 def ssd_inputs(gen, B, T, H, P, N, dtype, layout, device):
@@ -4632,6 +4679,284 @@ def launch(device, card) -> tuple:
     return launches_by_path, line
 
 
+# ---------------------------------------------------------------------------
+# the examples phase: the port's own entry points, as a user runs them
+# ---------------------------------------------------------------------------
+
+# train_ddp_shift: gpt2-124m at full width, 2 ranks x 4 x 512 tokens,
+# host1/mlx5_0 killed after step 3; then the same with --baseline
+EX_DDP_ARGV = ["--full", "--steps", "6", "--fail-at", "3"]
+EX_DDP_STEPS, EX_DDP_RANKS, EX_DDP_TOKENS = 6, 2, 4 * 512
+# serve_decode's defaults: 4 prompts of 16 tokens, 24 new tokens; its
+# cache holds 41 rows, and its decode steps attend over 17 to 40 of them
+EX_BATCH, EX_PROMPT, EX_GEN = 4, 16, 24
+EX_MAX_LEN = EX_PROMPT + EX_GEN + 1
+EX_LENS = [EX_PROMPT + 1, 24, 33, EX_PROMPT + EX_GEN]
+
+
+def example_names(archs) -> str:
+    return archs[0] + (f" and {len(archs) - 1} more" if archs[1:] else "")
+
+
+def example_heads() -> dict:
+    """The (query heads, K/V heads, head dim) of the self-attention of
+    every arch's smoke model that has one, each with its archs."""
+    heads = {}
+    for arch in CC.list_archs():
+        cfg = CC.smoke_config(arch)
+        if cfg.family != "rwkv6":
+            heads.setdefault((cfg.n_heads, cfg.n_kv_heads, cfg.hd),
+                             []).append(arch)
+    return heads
+
+
+def example_serve_launches(cfg, prefills: int, decodes: int) -> dict:
+    """The exact launches of ``prefills`` prefills and ``decodes`` decode
+    steps of ``cfg``'s model: one B1 an attention layer (a vlm's cross
+    blocks too) and prefill, one B3 an attention layer and decode step;
+    a hybrid's B4 a Mamba2 block and prefill, its shared attention once a
+    group; rwkv6's B5 a block and prefill and nothing a decode step."""
+    if cfg.family == "hybrid":
+        return dict(step_launches(hybrid_layout(cfg)[0], prefills, decodes),
+                    ssd_scan=cfg.n_layers * prefills)
+    if cfg.family == "rwkv6":
+        return dict(step_launches(0, 0, 0), rwkv6_scan=cfg.n_layers * prefills)
+    groups, selfs = vlm_layout(cfg) if cfg.family == "vlm" \
+        else (cfg.n_layers, 0)
+    return step_launches(groups * (1 + selfs), prefills, decodes)
+
+
+def serve_example_faults(cfg, tokens, stats, cpu_stats, launches,
+                         tp: bool) -> list:
+    """What is wrong with one ``serve_decode`` run at its defaults: its
+    tokens, its launches (one generate, with ``tp`` two: the local run
+    and the TP run) and, with ``tp``, its TP line against the same run's
+    on the CPU (``cpu_stats``: sync rounds and peak live collectives come
+    from the virtual clock) and its reconstructions."""
+    faults = []
+    runs = 2 if tp else 1
+    want = example_serve_launches(cfg, runs, runs * EX_GEN)
+    if launches != want:
+        faults.append(f"launches {launches}, want exactly {want}")
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(EX_BATCH, EX_PROMPT))
+    if tokens.shape != (EX_BATCH, EX_PROMPT + EX_GEN) \
+            or not np.array_equal(tokens[:, :EX_PROMPT], prompts) \
+            or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        faults.append(f"tokens {tokens.shape}: not the prompts and "
+                      f"{EX_GEN} tokens in [0, {cfg.vocab})")
+    if not tp:
+        if stats is not None:
+            faults.append(f"TP statistics without --tp: {stats}")
+        return faults
+    if stats is None or stats["reconstruction_mismatches"]:
+        faults.append(f"TP run: {stats}")
+        return faults
+    for key in ("sync_rounds", "peak_live_collectives"):
+        if stats[key] != cpu_stats[key]:
+            faults.append(f"TP line: {key} {stats[key]} on the card, "
+                          f"{cpu_stats[key]} on the CPU")
+    return faults
+
+
+# the planted faults of the examples' logits check, by the kernel they
+# stand in for: the prefill's causal edge one key late (B1), a decode step
+# one cache row short (B3), the SSD scan and the RWKV6 scan (B4, B5)
+EX_KEY_LATE = "prefill: the causal edge one key late"
+EX_ROW_SHORT = "decode: one cache row short"
+EX_SSD_FAULT = "output read from the state before the step"
+EX_RWKV_FAULT = "bonus u left out"
+
+
+def example_faults(cfg) -> list:
+    """The planted faults of ``cfg``'s serve path: one for each kernel it
+    runs."""
+    if cfg.family == "rwkv6":
+        return [EX_RWKV_FAULT]
+    return [EX_KEY_LATE, EX_ROW_SHORT] \
+        + ([EX_SSD_FAULT] if cfg.family == "hybrid" else [])
+
+
+def late_edge(q, k, v, causal=True, scale=None):
+    """The plain prefill attention, its causal edge one key late (the
+    cross blocks' non-causal attention as it is)."""
+    return one_key_late(q, k, v) if causal \
+        else plain_train(q, k, v, causal, scale)
+
+
+@contextmanager
+def example_plain(fault=None):
+    """Every kernel of a serve path (B1, B3, B4, B5) swapped for its plain
+    version, with one planted ``fault`` of example_faults() if named."""
+    with plain_attention(late_edge if fault == EX_KEY_LATE else plain_train,
+                         one_row_short if fault == EX_ROW_SHORT
+                         else DR.decode_attention_ref), \
+            scan_swapped(scan_route(EX_SSD_FAULT if fault == EX_SSD_FAULT
+                                    else None)), \
+            swapped("rwkv6_scan", fault_route(EX_RWKV_FAULT)
+                    if fault == EX_RWKV_FAULT else RR.rwkv6_scan_ref):
+        yield
+
+
+def example_logits(cfg, tokens, device) -> dict:
+    """A ``serve_decode`` run of ``cfg`` again, on a new engine with the
+    same params, teacher-forced with the run's ``tokens``: the kernel
+    path's bf16 logits (a prefill and EX_GEN decode steps) against the
+    plain path's, the kernel path's greedy tokens against ``tokens``, and
+    the plain path with each planted fault against the plain path."""
+    engine = ServeEngine(build_model(cfg, device=device),
+                         EX_SERVE.smoke_params(cfg), max_len=EX_MAX_LEN,
+                         device=device)
+    prompts = tokens[:, :EX_PROMPT]
+    feed = [torch.as_tensor(tokens[:, i:i + 1], device=device)
+            for i in range(EX_PROMPT, EX_PROMPT + EX_GEN)]
+    fast = teacher_forced(engine, prompts, feed)
+    with example_plain():
+        slow = teacher_forced(engine, prompts, feed)
+    greedy = fast[:, :EX_GEN].argmax(-1).cpu().numpy()
+    reading = {"rel_l2": rel_l2(fast, slow),
+               "finite": bool(torch.isfinite(fast).all()),
+               "greedy_tokens_differ":
+                   int((greedy != tokens[:, EX_PROMPT:]).sum()),
+               "faults": {}}
+    for fault in example_faults(cfg):
+        with example_plain(fault):
+            reading["faults"][fault] = rel_l2(
+                teacher_forced(engine, prompts, feed), slow)
+    return reading
+
+
+def example_logits_faults(reading) -> list:
+    """What is wrong with an example_logits() reading: non-finite logits,
+    a kernel path off its plain path by more than LOGITS_REL_L2, greedy
+    tokens that are not the run's, or a planted fault within the limit."""
+    faults = []
+    if not reading["finite"]:
+        faults.append("non-finite logits")
+    if not reading["rel_l2"] <= LOGITS_REL_L2:
+        faults.append(f"kernel vs plain logits rel L2 {reading['rel_l2']:.3g}"
+                      f" > {LOGITS_REL_L2}")
+    if reading["greedy_tokens_differ"]:
+        faults.append(f"{reading['greedy_tokens_differ']} of the run's "
+                      f"tokens are not the kernel path's greedy tokens")
+    for fault, rel in reading["faults"].items():
+        if not rel > LOGITS_REL_L2:
+            faults.append(f"planted fault '{fault}' not rejected: rel L2 "
+                          f"{rel:.3g}")
+    return faults
+
+
+def ddp_example_launches(run, L: int) -> dict:
+    """The exact launches of a ``train_ddp_shift`` run of an L-layer model
+    (remat "full"): every rank's forward and backward of each step it
+    computed, a timeline entry each, and one more a restart (the crash's
+    step computed its gradients before the all-reduce failed)."""
+    computed = (len(run.timeline) + run.restarts) * EX_DDP_RANKS
+    return {k: v * computed
+            for k, v in remat_step_launches("full", L).items()}
+
+
+def ddp_example_faults(run, launches, baseline: bool, L: int,
+                       steps: int = EX_DDP_STEPS) -> list:
+    """What is wrong with a ``train_ddp_shift`` run of ``steps`` steps:
+    its launches, its losses, and its fault accounting (SHIFT: >= 1
+    fallback, no restart, each step once; the baseline: one restart, no
+    fallback, the run reaching ``steps``)."""
+    faults = []
+    want = ddp_example_launches(run, L)
+    if launches != want:
+        faults.append(f"launches {launches}, want exactly {want}")
+    losses = _losses(run)
+    if not all(np.isfinite(losses)):
+        faults.append(f"losses {losses}")
+    seen = [s for _, s, _ in run.timeline]
+    if run.final_step != steps or seen[-1:] != [steps]:
+        faults.append(f"final step {run.final_step}, timeline steps "
+                      f"{seen}, want {steps}")
+    if baseline:
+        if run.restarts != 1 or run.fallbacks != 0:
+            faults.append(f"baseline: {run.restarts} restarts, "
+                          f"{run.fallbacks} fallbacks; want 1 and 0")
+    elif run.fallbacks < 1 or run.restarts != 0 \
+            or seen != list(range(1, steps + 1)):
+        faults.append(f"SHIFT: {run.fallbacks} fallbacks, {run.restarts} "
+                      f"restarts, timeline steps {seen}")
+    return faults
+
+
+def examples(device, card) -> tuple:
+    """The port's entry points, each through its ``main(argv)`` on the
+    card with the launch counts set to 0 just before and read just after:
+    (a) ``train_ddp_shift --full`` (gpt2-124m at full width, a NIC killed),
+    (b) the same with ``--baseline``, (c) ``serve_decode`` for each of the
+    11 archs at its defaults, ``--tp`` for the KV-cache families, whose TP
+    line is held to the same run's on the CPU; each run's logits,
+    teacher-forced with its own tokens, are held to the plain path's, with
+    planted faults rejected (example_logits). Returns (launches by path,
+    the examples line)."""
+    t0 = time.perf_counter()
+    cfg = gpt2_124m.config()
+    launches, line = {}, {"card": card}
+    for label, extra in (("train_ddp_shift --full", []),
+                         ("train_ddp_shift --full --baseline",
+                          ["--baseline"])):
+        argv = EX_DDP_ARGV + extra + ["--device", "cuda"]
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        run = EX_TRAIN.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches[f"examples {label}"] = n = read_counts()
+        faults = ddp_example_faults(run, n, bool(extra), cfg.n_layers)
+        computed = len(run.timeline) + run.restarts
+        entry = {"argv": argv, "wall_s": wall,
+                 "tokens_per_s": computed * EX_DDP_RANKS * EX_DDP_TOKENS
+                 / wall,
+                 "steps_computed": computed, "fallbacks": run.fallbacks,
+                 "restarts": run.restarts, "recoveries": run.recoveries,
+                 "step_grad_ms": [x * 1e3 for x in run.step_grad_times],
+                 "losses": _losses(run), "launches": n}
+        print(f"examples {label}: {json.dumps(entry)}")
+        check(not faults, f"examples {label}: " + "; ".join(faults))
+        line[label] = entry
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    serve = {}
+    for arch in CC.list_archs():
+        scfg = CC.smoke_config(arch)
+        tp = scfg.family in KV_CACHE_FAMILIES
+        argv = ["--arch", arch] + (["--tp"] if tp else [])
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        tokens, stats = EX_SERVE.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches[f"examples serve_decode {arch}"] = n = read_counts()
+        cpu_stats = None
+        if tp:
+            with redirect_stdout(io.StringIO()):
+                cpu_stats = EX_SERVE.main(argv + ["--device", "cpu"])[1]
+        faults = serve_example_faults(scfg, tokens, stats, cpu_stats, n, tp)
+        logits = example_logits(scfg, tokens, device)
+        faults += example_logits_faults(logits)
+        serve[arch] = {"argv": argv, "wall_s": wall,
+                       "tokens_per_s": (2 if tp else 1) * EX_BATCH * EX_GEN
+                       / wall,
+                       "tp": stats, "tp_cpu": cpu_stats, "launches": n,
+                       "logits": logits}
+        print(f"examples serve_decode {arch}: {json.dumps(serve[arch])}")
+        check(not faults, f"examples serve_decode {arch}: "
+                          + "; ".join(faults))
+    line["serve_decode"] = serve
+    line["wall_s"] = time.perf_counter() - t0
+    print(f"examples phase: {line['wall_s']:.1f} s on {card}")
+    return launches, {"examples": line}
+
+
 def matmul_shapes(prof, n: int):
     """The matmul kernels' device ms per step by (kernel, launching
     operator, its input shapes and dtypes), the largest 8."""
@@ -4737,6 +5062,7 @@ def print_ptxas(lib: str, marker: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         die("no CUDA device: this smoke run needs an NVIDIA card")
     card = card_line()
@@ -4804,6 +5130,10 @@ def main() -> None:
     launches.update(l_launches)
     gc.collect()
     torch.cuda.empty_cache()
+    e_launches, examples_line = examples(device, card)
+    launches.update(e_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels = time_kernels(device, errs, launches)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
@@ -4822,6 +5152,9 @@ def main() -> None:
     print(json.dumps(serving_campaign_line))
     print(json.dumps(families_line))
     print(json.dumps(launch_line))
+    print(json.dumps(examples_line))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all on "
+          f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1177,3 +1177,192 @@ def test_launch_prefill_expectations_are_the_configs_layers():
         "ssd_scan": z.n_layers, "flash_attention": hybrid_layout(z)[0]}
     assert CS.LAUNCH_PREFILL["rwkv6-3b"] == {
         "rwkv6_scan": CS.rwkv6_3b.config().n_layers}
+
+
+# ---------------------------------------------------------------------------
+# the examples phase: its checks on CPU runs of the port's entry points
+# ---------------------------------------------------------------------------
+
+# what a kernel's plain version counts on the CPU, by the kernel's name
+AS_CARD = {"flash_attention": "flash_attention_ref",
+           "flash_bwd_dq": "flash_attention_bwd_ref",
+           "flash_bwd_dkv": "flash_attention_bwd_ref",
+           "decode_attention": "decode_attention_ref",
+           "ssd_scan": "ssd_scan_ref", "rwkv6_scan": "rwkv6_scan_ref"}
+
+
+def _counted(run):
+    """``run()``'s result and the launches the card would count for it:
+    on the CPU every wrapper runs its plain version, which counts."""
+    CS.zero_counts()
+    out = run()
+    n = CS.read_counts()
+    assert all(n[k] == 0 for k in CS.KERNELS), n
+    card = {k: 0 for k in CS.KERNELS + CS.PLAIN}
+    card.update({k: n[p] for k, p in AS_CARD.items()})
+    return out, card
+
+
+def _serve_cpu(arch):
+    cfg = CS.CC.smoke_config(arch)
+    tp = cfg.family in CS.KV_CACHE_FAMILIES
+    argv = ["--arch", arch, "--device", "cpu"] + (["--tp"] if tp else [])
+    (tokens, stats), n = _counted(lambda: CS.EX_SERVE.main(argv))
+    return cfg, tp, tokens, stats, n
+
+
+def _example_kernel_calls(arch):
+    """Every kernel call of ``arch``'s ``serve_decode`` run at its defaults
+    on the CPU, by kernel: B1 (B, H, KV, Sq, Sk, hd, dtype, causal), B3
+    (B, H, KV, S, hd, dtype) with its lengths, B4 (B, T, H, P, N, dtype,
+    layout), B5 (B, T, H, dtype, layout)."""
+    seen = {"B1": set(), "B3": {}, "B4": set(), "B5": set()}
+
+    def train(q, k, v, causal=True, scale=None):
+        seen["B1"].add((q.shape[0], q.shape[2], k.shape[2], q.shape[1],
+                        k.shape[1], q.shape[3], q.dtype, causal))
+        return CS.plain_train(q, k, v, causal=causal, scale=scale)
+
+    def decode(q, kc, vc, lens):
+        seen["B3"].setdefault((q.shape[0], q.shape[1], kc.shape[2],
+                               kc.shape[1], q.shape[2], q.dtype),
+                              set()).update(lens.tolist())
+        return CS.DR.decode_attention_ref(q, kc, vc, lens)
+
+    def ssd(xh, dt, A, Bm, Cm, return_state=False):
+        layout = "model" if xh.is_contiguous() and not Bm.is_contiguous() \
+            else "other"
+        seen["B4"].add((*xh.shape[:2], *xh.shape[2:], Bm.shape[-1],
+                        xh.dtype, layout))
+        y, h = CS.SR.ssd_scan_ref(xh, dt, A, Bm, Cm)
+        return (y, h) if return_state else y
+
+    def rwkv(r, k, v, w, u):
+        layout = "model" if all(t.is_contiguous() for t in (r, k, v, w)) \
+            else "other"
+        seen["B5"].add((*r.shape[:3], r.dtype, layout))
+        return CS.RR.rwkv6_scan_ref(r, k, v, w, u)
+
+    with CS.plain_attention(train, decode), CS.scan_swapped(ssd), \
+            CS.swapped("rwkv6_scan", rwkv), \
+            CS.redirect_stdout(CS.io.StringIO()):
+        CS.EX_SERVE.main(["--arch", arch, "--device", "cpu"])
+    return seen
+
+
+@pytest.mark.parametrize("arch", CS.CC.list_archs())
+def test_examples_kernel_calls_are_kernel_cases(arch):
+    """Each shape at which an arch's bf16 smoke model runs a kernel in
+    ``serve_decode`` is one of the kernel cases held against the plain
+    version on the card (with their planted faults and bitwise repeats),
+    and the B3 case spans the run's cache lengths. (rwkv6's B5 prefill,
+    (4, 16, 2), is held at the model's level: example_logits.)"""
+    flash = {c[1:9] for c in CS.flash_cases()}
+    decode = {c[1:7]: c[7] for c in CS.decode_cases()}
+    ssd = {c[1:] for c in CS.ssd_cases()}
+    seen = _example_kernel_calls(arch)
+    assert seen["B1"] or seen["B5"]
+    assert seen["B1"] <= flash
+    for shape, lens in seen["B3"].items():
+        assert shape in decode
+        assert (min(lens), max(lens)) == (min(decode[shape]),
+                                          max(decode[shape]))
+    assert seen["B4"] <= ssd
+    family = CS.CC.smoke_config(arch).family
+    assert bool(seen["B4"]) == (family == "hybrid")
+    assert bool(seen["B5"]) == (family == "rwkv6")
+
+
+@pytest.mark.parametrize("arch", CS.CC.list_archs())
+def test_examples_logits_check_rejects_planted_faults(arch):
+    """The examples phase's logits check on the CPU, where the kernel path
+    is the plain one: each arch's run passes it, each of its planted
+    faults (one a kernel of its path) lies past the limit, and a reading
+    off the plain path, with a token not its own or with non-finite
+    logits fails it."""
+    cfg = CS.CC.smoke_config(arch)
+    with CS.redirect_stdout(CS.io.StringIO()):
+        tokens, _ = CS.EX_SERVE.main(["--arch", arch, "--device", "cpu"])
+    reading = CS.example_logits(cfg, tokens, "cpu")
+    assert CS.example_logits_faults(reading) == []
+    assert set(reading["faults"]) == set(CS.example_faults(cfg))
+    assert reading["rel_l2"] == 0 and reading["greedy_tokens_differ"] == 0
+    planted = {"off the plain path": dict(
+                   reading, rel_l2=2 * CS.LOGITS_REL_L2),
+               "a token not its own": dict(reading, greedy_tokens_differ=1),
+               "non-finite logits": dict(reading, finite=False),
+               "a fault within the limit": dict(reading, faults=dict(
+                   reading["faults"], planted=CS.LOGITS_REL_L2))}
+    for fault, bad in planted.items():
+        assert CS.example_logits_faults(bad), fault
+
+
+@pytest.mark.parametrize("arch", CS.CC.list_archs())
+def test_examples_serve_launch_expectations_are_the_cpu_counts(arch):
+    """Each arch's ``serve_decode`` run at its defaults on the CPU passes
+    the phase's check with its own TP line: its plain versions ran
+    exactly as often as the phase wants each kernel to run."""
+    cfg, tp, tokens, stats, n = _serve_cpu(arch)
+    assert CS.serve_example_faults(cfg, tokens, stats, stats, n, tp) == []
+    assert n["flash_attention"] + n["rwkv6_scan"] > 0
+
+
+def test_examples_serve_check_rejects_planted_faults():
+    cfg, tp, tokens, stats, n = _serve_cpu("llama4-maverick-400b-a17b")
+    assert tp and CS.serve_example_faults(cfg, tokens, stats, stats, n,
+                                          tp) == []
+    plain = dict(n, flash_attention_ref=1)
+    short = dict(n, decode_attention=n["decode_attention"] - 1)
+    bad = tokens.copy()
+    bad[0, -1] = cfg.vocab
+    planted = {
+        "a plain launch": (tokens, stats, stats, plain, tp),
+        "a B3 launch missing": (tokens, stats, stats, short, tp),
+        "sync rounds differ from the CPU's": (
+            tokens, stats, dict(stats, sync_rounds=stats["sync_rounds"] + 1),
+            n, tp),
+        "peak live collectives differ from the CPU's": (
+            tokens, stats, dict(stats, peak_live_collectives=stats[
+                "peak_live_collectives"] - 1), n, tp),
+        "a reconstruction mismatch": (
+            tokens, dict(stats, reconstruction_mismatches=1), stats, n, tp),
+        "a token out of the vocabulary": (bad, stats, stats, n, tp),
+        "the TP run left out": (tokens, None, stats, n, tp),
+    }
+    for fault, args in planted.items():
+        assert CS.serve_example_faults(cfg, *args), fault
+
+
+@pytest.mark.parametrize("baseline", [False, True])
+def test_examples_ddp_check_rejects_planted_faults(baseline):
+    """``train_ddp_shift`` on the CPU (the reduced model, 4 steps, the NIC
+    killed after step 2) passes the phase's check, launches included (the
+    baseline's crashed step computed its gradients too), and each planted
+    fault fails it."""
+    argv = ["--steps", "4", "--fail-at", "2", "--device", "cpu"] \
+        + (["--baseline"] if baseline else [])
+    run, n = _counted(lambda: CS.EX_TRAIN.main(argv))
+    L = 4                               # the reduced model's layers
+    check = lambda r, launches=n: CS.ddp_example_faults(  # noqa: E731
+        r, launches, baseline, L, steps=4)
+    assert check(run) == []
+    if baseline:
+        assert n["flash_bwd_dq"] == (6 + 1) * 2 * L
+    else:
+        assert n["flash_bwd_dq"] == 4 * 2 * L and run.fallbacks >= 1
+    replace = CS.dataclasses.replace
+    planted = {"a plain launch": (run, dict(n, flash_attention_ref=1)),
+               "a B1 launch missing": (run, dict(
+                   n, flash_attention=n["flash_attention"] - 1)),
+               "a NaN loss": (replace(run, timeline=run.timeline[:-1] + [
+                   run.timeline[-1][:2] + (float("nan"),)]), n),
+               "the last step missing": (replace(
+                   run, timeline=run.timeline[:-1], final_step=3), n)}
+    if baseline:
+        planted["no restart"] = (replace(run, restarts=0), n)
+        planted["a fallback"] = (replace(run, fallbacks=1), n)
+    else:
+        planted["0 fallbacks"] = (replace(run, fallbacks=0), n)
+        planted["a restart under SHIFT"] = (replace(run, restarts=1), n)
+    for fault, (r, launches) in planted.items():
+        assert check(r, launches), fault

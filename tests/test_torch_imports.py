@@ -5,7 +5,8 @@ cells (``repro_torch.scenarios``, with ``repro_torch.policy`` imported; a
 ``serving`` cell among them), and the launch tooling
 (``repro_torch.launch.{mesh,sharding,hook_dryrun,dryrun}``: a meta-device
 trace and a readiness report) loads neither ``jax`` nor any module of
-``repro``; and it never moves to the CPU on its own."""
+``repro``; nor do its entry points (``repro_torch.examples``); and it
+never moves to the CPU on its own."""
 
 import os
 import subprocess
@@ -124,6 +125,31 @@ print("LOADED", bad)
 def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", _PROGRAM], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+_EXAMPLES = r"""
+import sys
+from repro_torch.examples import quickstart, serve_decode, train_ddp_shift
+quickstart.main()
+tokens, stats = serve_decode.main(["--device", "cpu", "--tp", "--gen", "3"])
+assert tokens.shape == (4, 19) and stats["sync_rounds"] == 4, stats
+run = train_ddp_shift.main(["--device", "cpu", "--steps", "2",
+                            "--fail-at", "1"])
+assert run.final_step == 2 and run.fallbacks >= 1, run
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+"""
+
+
+def test_examples_import_neither_jax_nor_repro():
+    """The three entry points, each run on the CPU in one process."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", _EXAMPLES], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout, res.stdout
