@@ -7,6 +7,7 @@ import functools
 
 import torch
 
+from ... import spans
 from .. import _build
 from .ref import decode_attention_ref
 
@@ -127,7 +128,7 @@ def decode_attention(q, k_cache, v_cache, lens, scale=None):
     part_ml = torch.empty(n // hd * 2, dtype=torch.float32, device=q.device)
     if meta:
         return o
-    with torch.cuda.device(q.device):
+    with spans.span("kernel.B3"), torch.cuda.device(q.device):
         err = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), o.data_ptr(), part_o.data_ptr(),

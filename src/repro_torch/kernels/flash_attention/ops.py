@@ -8,6 +8,7 @@ import ctypes
 
 import torch
 
+from ... import spans
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -103,7 +104,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     if q.device.type == "meta":
         return o, lse
     lib = _lib()
-    with torch.cuda.device(q.device):
+    with spans.span("kernel.B1"), torch.cuda.device(q.device):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _build.dtype_code(q), B, H, KV, Sq, Sk, hd,
@@ -216,15 +217,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")
-    do = _kernel_layout(do)
-    _check_bwd(q, k, v, o, lse, do)
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    # do is promoted inside the product: the float32 products of
-    # o.float() * do.float(), bit for bit, without a float32 copy of do
-    delta = (o.float() * do).sum(-1).transpose(1, 2).contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
-    return dq, dk, dv
+    with spans.span("kernel.B2", q.device.type == "cuda"):
+        do = _kernel_layout(do)
+        _check_bwd(q, k, v, o, lse, do)
+        scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+        # do is promoted inside the product: the float32 products of
+        # o.float() * do.float(), bit for bit, without a float32 copy of do
+        delta = (o.float() * do).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

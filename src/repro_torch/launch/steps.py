@@ -9,6 +9,7 @@ import torch
 
 from ..models.lm import LM, flatten, unflatten
 from ..optim import AdamWConfig, adamw_update
+from ..spans import span
 
 
 def value_and_grad(model: LM, params: Dict[str, Any],
@@ -19,8 +20,10 @@ def value_and_grad(model: LM, params: Dict[str, Any],
     left as they are."""
     items = [(path, p.detach().requires_grad_())
              for path, p in flatten(params)]
-    loss = model.loss(unflatten(items), batch)
-    grads = torch.autograd.grad(loss, [p for _, p in items])
+    with span("train.forward"):
+        loss = model.loss(unflatten(items), batch)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, [p for _, p in items])
     return loss.detach(), unflatten(
         (path, g) for (path, _), g in zip(items, grads))
 
@@ -31,8 +34,9 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig):
     in the metrics (0-d tensors on the model's device)."""
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(model, params, batch)
-        new_params, new_state, metrics = adamw_update(
-            params, grads, opt_state, opt_cfg)
+        with span("train.adamw"):
+            new_params, new_state, metrics = adamw_update(
+                params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss)
         return new_params, new_state, metrics
     return train_step

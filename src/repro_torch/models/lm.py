@@ -22,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import resolve_device
+from ..spans import span
 from . import attention as A
 from . import blocks as BL
 from .common import ModelConfig, init_dense, rms_norm, rope_cos_sin
@@ -271,15 +272,18 @@ class LM:
         rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
         for blk in _layers(params["blocks"], cfg.n_layers):
             x = remat(cfg, self._train_block, x, blk, rope)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self._logits(params, x)
+        with span("model.head"):
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return self._logits(params, x)
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S + 1):
         the logits of tokens[:, :-1] in float32, logsumexp minus the logit
         of each target tokens[:, 1:]. A scalar float32 tensor."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        return _nll(self.forward(params, tokens[:, :-1]), tokens[:, 1:])
+        logits = self.forward(params, tokens[:, :-1])
+        with span("model.loss"):
+            return _nll(logits, tokens[:, 1:])
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 last_pos=None):

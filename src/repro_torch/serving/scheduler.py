@@ -33,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..collectives import CollectiveError
+from ..spans import span
 
 QUEUED, ACTIVE, DONE, FAILED = "queued", "active", "done", "failed"
 
@@ -90,23 +91,25 @@ class RequestScheduler:
         callers handle it via :meth:`fail_outstanding`."""
         for slot in range(self.n_slots):
             if self.slots[slot] is None and self.queue:
-                req = self.queue.popleft()
-                req.slot, req.state = slot, ACTIVE
-                self.slots[slot] = req
-                tok = self.engine.admit(slot, req.prompt)
-                req.tokens.append(tok)
-                self._feed[slot] = tok
-                self._maybe_finish(req)
+                with span("sched.admit"):
+                    req = self.queue.popleft()
+                    req.slot, req.state = slot, ACTIVE
+                    self.slots[slot] = req
+                    tok = self.engine.admit(slot, req.prompt)
+                    req.tokens.append(tok)
+                    self._feed[slot] = tok
+                    self._maybe_finish(req)
         if any(r is not None for r in self.slots):
-            toks = self.engine.decode_batch(self._feed.copy())
-            self.decode_steps += 1
-            for slot, req in enumerate(list(self.slots)):
-                if req is None:
-                    continue
-                tok = int(toks[slot])
-                req.tokens.append(tok)
-                self._feed[slot] = tok
-                self._maybe_finish(req)
+            with span("sched.decode"):
+                toks = self.engine.decode_batch(self._feed.copy())
+                self.decode_steps += 1
+                for slot, req in enumerate(list(self.slots)):
+                    if req is None:
+                        continue
+                    tok = int(toks[slot])
+                    req.tokens.append(tok)
+                    self._feed[slot] = tok
+                    self._maybe_finish(req)
         return self.pending
 
     def fail_outstanding(self) -> int:

@@ -44,6 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..models.lm import LM
+from ..spans import span
 from .engine import KV_CACHE_FAMILIES, ServeEngine
 
 
@@ -156,26 +157,27 @@ class TPServeEngine:
         self.sync_rounds += 1
         if self.world is None:
             return logits
-        payloads = {"logits": _host_bytes(logits)}
-        if cache is not None and prev_len is not None:
-            payloads.update(self._step_kv_bytes(cache, prev_len))
-        works = {name: self.world.gather_replicated_async(
-                     b, priority="latency_critical")
-                 for name, b in payloads.items()}
-        moe = None
-        if self.model.cfg.family == "moe" and "kv0" in payloads:
-            moe = self._expert_dispatch(payloads["kv0"])
-        batch = list(works.values()) + ([moe[1]] if moe else [])
-        self.world.wait_all(batch, timeout=self.timeout)
-        for name, b in payloads.items():
-            for rec in works[name].result():
-                if not np.array_equal(rec, b):
-                    self.reconstruction_mismatches += 1
-        if moe is not None:
-            self._expert_combine(*moe)
-        rec0 = np.array(works["logits"].result()[0])
-        return torch.from_numpy(rec0).to(self.device) \
-            .view(logits.dtype).view(logits.shape)
+        with span("serve.fabric"):
+            payloads = {"logits": _host_bytes(logits)}
+            if cache is not None and prev_len is not None:
+                payloads.update(self._step_kv_bytes(cache, prev_len))
+            works = {name: self.world.gather_replicated_async(
+                         b, priority="latency_critical")
+                     for name, b in payloads.items()}
+            moe = None
+            if self.model.cfg.family == "moe" and "kv0" in payloads:
+                moe = self._expert_dispatch(payloads["kv0"])
+            batch = list(works.values()) + ([moe[1]] if moe else [])
+            self.world.wait_all(batch, timeout=self.timeout)
+            for name, b in payloads.items():
+                for rec in works[name].result():
+                    if not np.array_equal(rec, b):
+                        self.reconstruction_mismatches += 1
+            if moe is not None:
+                self._expert_combine(*moe)
+            rec0 = np.array(works["logits"].result()[0])
+            return torch.from_numpy(rec0).to(self.device) \
+                .view(logits.dtype).view(logits.shape)
 
     # -- static batch generation -------------------------------------------
 
@@ -227,13 +229,16 @@ class TPServeEngine:
                              f"[1, {self._prefill_len}]")
         padded = np.zeros((1, self._prefill_len), np.int32)
         padded[0, :n] = prompt
-        logits, pcache = self._local._prefill(padded, last_pos=[n - 1])
-        c = self._cache
-        c["k"][:, slot] = pcache["k"][:, 0]
-        c["v"][:, slot] = pcache["v"][:, 0]
-        c["len"][slot] = n
+        with span("serve.admit.prefill"):
+            logits, pcache = self._local._prefill(padded, last_pos=[n - 1])
+        with span("serve.admit.splice"):
+            c = self._cache
+            c["k"][:, slot] = pcache["k"][:, 0]
+            c["v"][:, slot] = pcache["v"][:, 0]
+            c["len"][slot] = n
         rec = self._sync(logits)
-        return int(rec[0, -1].argmax())
+        with span("serve.admit.readback"):
+            return int(rec[0, -1].argmax())
 
     def decode_batch(self, feed: np.ndarray) -> np.ndarray:
         """One decode step over every slot; ``feed`` is the (n_slots,)
@@ -245,8 +250,11 @@ class TPServeEngine:
         feed = np.asarray(feed, dtype=np.int32).reshape(-1)
         if feed.size != self._n_slots:
             raise ValueError(f"feed size {feed.size} != {self._n_slots}")
-        tokens = torch.as_tensor(feed, device=self.device)[:, None]
+        with span("serve.decode.feed"):
+            tokens = torch.as_tensor(feed, device=self.device)[:, None]
         prev_len = self._cache["len"]
-        logits, self._cache = self._local._decode(self._cache, tokens)
+        with span("serve.decode.step"):
+            logits, self._cache = self._local._decode(self._cache, tokens)
         rec = self._sync(logits, self._cache, prev_len)
-        return rec[:, -1].argmax(dim=-1).to(torch.int32).cpu().numpy()
+        with span("serve.decode.readback"):
+            return rec[:, -1].argmax(dim=-1).to(torch.int32).cpu().numpy()
