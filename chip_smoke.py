@@ -407,6 +407,10 @@ SERVE_MAX_LEN = 544          # 512-token prompts + 32 new tokens (both models)
 PROMPT_LENS = [128, 256, 384, 512]
 N_NEW = 32
 SCHED_SLOTS, SCHED_REQUESTS, SCHED_PREFILL = 4, 8, 256
+# yi-6b admissions at a prompt's own length (``TPServeEngine.admit``) from
+# the benchmark's document-QA traffic (prompts of 1024-3584): each ends
+# inside a 128-row query block
+ADMIT_LENS = (1025, 2303, 3583)
 
 # llama4-maverick at full width on one card: MOE_LAYERS of its 48 layers
 # with bf16 params, 34.4 B params or 68.8 GB (3 layers would be 101 GB).
@@ -619,6 +623,8 @@ def flash_cases():
                   ("fused qkv", 2, 8, 2, 257, 257, hd, bf, True, "fused")]
     # 5 x 9 x 5 = 225 blocks: not a whole number of waves on 132 SMs
     cases.append(("225 blocks", 5, 9, 3, 640, 640, 128, bf, True))
+    cases += [(f"yi-6b admission S={S}", 1, 32, 4, S, S, 128, bf, True)
+              for S in ADMIT_LENS]
     # the examples phase: serve_decode's prefill of each arch's bf16 smoke
     # model (hd 16, zamba2's shared attention hd 32) and the vlm's cross
     # blocks over its image keys
@@ -1255,12 +1261,14 @@ def check_refusals(device):
 
 
 # B1's main-path shapes: (path, B, H, KV, S, hd), all bf16 and causal (the
-# llama4-maverick prefill: 5 query heads a K/V head; kimi-k2's: hd 112)
+# llama4-maverick prefill: 5 query heads a K/V head; kimi-k2's: hd 112;
+# yi-6b's admissions at their own lengths)
 FLASH_TIMED = (("yi-6b prefill", 4, 32, 4, 512, 128),
                ("zamba2 prefill", 4, 32, 32, 512, 64),
                ("gpt2 train forward", TRAIN_B, 12, 12, TRAIN_S, 64),
                ("llama4 prefill", 4, 40, 8, 512, 128),
-               ("kimi prefill", 4, 64, 8, 512, 112))
+               ("kimi prefill", 4, 64, 8, 512, 112)) \
+    + tuple((f"yi-6b admission S={S}", 1, 32, 4, S, 128) for S in ADMIT_LENS)
 # and non-causal, (path, B, H, KV, Sq, Sk, hd): the vlm cross prefill, 512
 # queries over 1600 image keys
 FLASH_CROSS_TIMED = (("vlm cross prefill", 4, 64, 8, 512, VLM_IMAGE_TOKENS,

@@ -160,6 +160,9 @@ class LM:
     reference."""
 
     families = ("dense", "audio")
+    # whether a real position's outputs can depend on positions after it:
+    # not here (causal attention, a per-token MLP), so padding is dead work
+    reads_later_positions = False
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family not in self.families:
@@ -346,6 +349,8 @@ class MoeLM(LM):
     (expert capacity)."""
 
     families = ("moe",)
+    # expert capacity is set by every token of the call, padding included
+    reads_later_positions = True
 
     def _init_ffn(self, gen: torch.Generator, dtype) -> Dict[str, Any]:
         return {"moe": BL.init_moe(gen, self.cfg, dtype, self.cfg.n_layers)}

@@ -2,8 +2,10 @@
 port's own copy of the reference's numpy-only scheduler).
 
 One scheduler tick (:meth:`RequestScheduler.step`) does admission first
-— every free slot takes the oldest queued request, prefilled alone and
-spliced into the slot cache (prefill/decode interleave) — then one
+— every free slot takes the oldest queued request, prefilled alone at
+its own length (right-padded to ``prefill_len`` where the model's outputs
+can depend on later positions, as MoE's do) and spliced into the slot
+cache (prefill/decode interleave) — then one
 batched decode step over all active slots. Requests move through a
 small state machine::
 

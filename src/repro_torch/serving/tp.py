@@ -28,11 +28,15 @@ flight. ``world=None`` is pure local compute: that mode is the reference
 run the campaign compares tokens against.
 
 Continuous batching (``start_batch`` / ``admit`` / ``decode_batch``): a
-prompt is right-padded to ``prefill_len``, prefilled alone and spliced
-into its slot with its own length; a decode step advances every slot. A
-free slot decodes a don't-care row and its length keeps growing, possibly
-past the end of the cache: the attention sublayer clamps the write
-position and the attended length, as the reference does.
+prompt is prefilled alone, at its own length, and spliced into its slot
+with that length; a decode step advances every slot. A model whose
+outputs can depend on later positions (``reads_later_positions``: MoE,
+whose expert capacity counts the padding) is prefilled right-padded to
+``prefill_len``, as the reference does, since there the padding changes
+the result. A free slot decodes a don't-care row and its length keeps
+growing, possibly past the end of the cache: the attention sublayer
+clamps the write position and the attended length, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -66,6 +70,9 @@ class TPServeEngine:
     bytes differed from the locally computed truth, the payload-level
     corruption metric the campaign invariants gate on. ``sync_rounds``
     counts synchronization points (one per prefill and decode step).
+    ``prefill_positions`` counts the positions the admission prefills ran,
+    summed over admissions: each prompt's own length, or ``prefill_len``
+    for a model that reads later positions.
     """
 
     def __init__(self, model: LM, params, world=None, max_len: int = 256,
@@ -90,6 +97,7 @@ class TPServeEngine:
         self.params = self._local.params
         self.sync_rounds = 0
         self.reconstruction_mismatches = 0
+        self.prefill_positions = 0
         # continuous-batching state
         self._cache = None
         self._n_slots = 0
@@ -206,7 +214,7 @@ class TPServeEngine:
 
     def start_batch(self, n_slots: int, prefill_len: int) -> None:
         """Allocate the slot cache: ``n_slots`` sequences with their own
-        lengths, prompts admitted right-padded to ``prefill_len``."""
+        lengths, prompts of at most ``prefill_len`` tokens admitted."""
         if not 1 <= prefill_len <= self.max_len:
             raise ValueError("prefill_len must be in [1, max_len]")
         cache = self.model.init_cache(n_slots, self.max_len)
@@ -219,7 +227,13 @@ class TPServeEngine:
     def admit(self, slot: int, prompt: np.ndarray) -> int:
         """Prefill one request alone and splice it into ``slot``; returns
         its first token, greedily sampled at its true last position from
-        the fabric-reconstructed prefill logits."""
+        the fabric-reconstructed prefill logits.
+
+        The prefill runs at the prompt's own length n: padding would
+        change no real position's outputs, and a decode step writes each
+        of the slot's rows from n on before one reads it. A model that
+        ``reads_later_positions`` is prefilled right-padded to
+        ``prefill_len``."""
         if self._cache is None:
             raise RuntimeError("start_batch() before admit()")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
@@ -227,10 +241,13 @@ class TPServeEngine:
         if not 1 <= n <= self._prefill_len:
             raise ValueError(f"prompt length {n} outside "
                              f"[1, {self._prefill_len}]")
-        padded = np.zeros((1, self._prefill_len), np.int32)
-        padded[0, :n] = prompt
+        tokens = prompt[None]
+        if self.model.reads_later_positions:
+            tokens = np.zeros((1, self._prefill_len), np.int32)
+            tokens[0, :n] = prompt
         with span("serve.admit.prefill"):
-            logits, pcache = self._local._prefill(padded, last_pos=[n - 1])
+            logits, pcache = self._local._prefill(tokens, last_pos=[n - 1])
+        self.prefill_positions += tokens.shape[1]
         with span("serve.admit.splice"):
             c = self._cache
             c["k"][:, slot] = pcache["k"][:, 0]

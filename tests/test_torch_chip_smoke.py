@@ -620,6 +620,23 @@ def test_campaign_loss_limit_rejects_planted_faults():
     assert all(rel > CS.CAMPAIGN_LOSS_REL for rel in faults.values())
 
 
+def test_yi6b_admissions_at_their_own_length_are_timed_kernel_cases():
+    """``TPServeEngine.admit`` prefills a dense prompt at its own length,
+    so yi-6b's B1 runs at a ragged S: each of ADMIT_LENS, past the first
+    and up to the last 128-row query block of the longest prompt, is a
+    causal bf16 case at B = 1 with yi-6b's heads and a timed shape."""
+    cfg = CS.yi_6b.config()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    flash = {c[1:] for c in CS.flash_cases()}
+    assert len(CS.ADMIT_LENS) == 3
+    for S in CS.ADMIT_LENS:
+        assert S % 128 and 1024 < S < 3584
+        assert (1, H, KV, S, S, hd, torch.bfloat16, True,
+                "contiguous") in flash
+        assert (f"yi-6b admission S={S}", 1, H, KV, S, hd) in CS.FLASH_TIMED
+    assert max(CS.ADMIT_LENS) // 128 == 3584 // 128 - 1
+
+
 def test_moe_cases_cover_llama4_and_the_serving_campaign():
     """B1 and B3 hold the moe paths' shapes: llama4-maverick's prefill,
     admission and decode at full width (5 query heads a K/V head, hd

@@ -8,6 +8,8 @@ flight before the first wait. The bytes it puts on the wire are the
 reference's (bf16 logits, each layer's K then V rows at the pre-step
 length, clamped). The float32 llama4-maverick smoke model's scheduler
 tokens equal the JAX ``TPServeEngine(world=None)``'s on converted params.
+Admission prefills a dense prompt at its own length and a MoE prompt
+padded to ``prefill_len``; both give the padded prefill's first token.
 """
 
 import numpy as np
@@ -19,11 +21,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import llama4_maverick as j_llama4  # noqa: E402
+from repro.configs import yi_6b as j_yi  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.serving import RequestScheduler as JScheduler  # noqa: E402
 from repro.serving import TPServeEngine as JTP  # noqa: E402
 from repro_torch.collectives import build_world  # noqa: E402
 from repro_torch.configs import gpt2_124m, llama4_maverick  # noqa: E402
+from repro_torch.configs import yi_6b  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import RequestScheduler, ServeEngine  # noqa: E402
@@ -201,34 +205,88 @@ def test_logit_bytes_are_the_bf16_bytes_and_come_back_exactly():
 # ---------------------------------------------------------------------------
 
 
-def test_f32_moe_scheduler_tokens_equal_reference():
-    """The float32 llama4-maverick smoke model, params from the reference:
-    continuous batching over ``TPServeEngine(world=None)`` gives the JAX
-    engine's tokens, request by request."""
-    jcfg = j_llama4.smoke_config(dtype=jnp.float32)
-    tcfg = llama4_maverick.smoke_config(dtype=torch.float32)
-    jm = j_build(jcfg)
+def _f32_pair(jmod, tmod):
+    """(JAX model, its params, port model, the same params) of a config
+    module pair's float32 smoke model, params drawn by the reference."""
+    jm = j_build(jmod.smoke_config(dtype=jnp.float32))
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = build_model(tcfg, device="cpu")
+    tcfg = tmod.smoke_config(dtype=torch.float32)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
                          device="cpu")
-    rng = np.random.RandomState(2)
-    plist = [rng.randint(1, 512, size=int(rng.randint(3, 13))
-                         ).astype(np.int32) for _ in range(5)]
-    n_tokens = [5, 2, 7, 3, 4]
+    return jm, jp, build_model(tcfg, device="cpu"), tp
+
+
+def _schedulers(pair, plist, n_tokens, prefill_len=12):
+    """The JAX and the port scheduler, each over its
+    ``TPServeEngine(world=None)`` with 2 slots, run over the same
+    requests."""
+    jm, jp, tm, tp = pair
     scheds = []
     for sched_cls, engine in (
             (JScheduler, JTP(jm, jp, world=None, max_len=MAX_LEN)),
             (RequestScheduler, TPServeEngine(tm, tp, world=None,
                                              max_len=MAX_LEN,
                                              device="cpu"))):
-        sched = sched_cls(engine, n_slots=2, prefill_len=12)
+        sched = sched_cls(engine, n_slots=2, prefill_len=prefill_len)
         for p, n in zip(plist, n_tokens):
             sched.submit(p, n)
         sched.run()
         scheds.append(sched)
     ref, port = scheds
-    assert [r.state for r in port.requests] == ["done"] * 5
+    assert [r.state for r in port.requests] == ["done"] * len(plist)
     assert [r.tokens for r in port.requests] == \
         [r.tokens for r in ref.requests]
+    return ref, port
+
+
+def test_f32_moe_scheduler_tokens_equal_reference():
+    """The float32 llama4-maverick smoke model, params from the reference:
+    continuous batching over ``TPServeEngine(world=None)`` gives the JAX
+    engine's tokens, request by request."""
+    rng = np.random.RandomState(2)
+    plist = [rng.randint(1, 512, size=int(rng.randint(3, 13))
+                         ).astype(np.int32) for _ in range(5)]
+    ref, port = _schedulers(_f32_pair(j_llama4, llama4_maverick), plist,
+                            [5, 2, 7, 3, 4])
     assert port.decode_steps == ref.decode_steps
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_admission_prefills_at_the_prompt_length_unless_later_positions_count(
+        family):
+    """The float32 yi-6b (dense) and llama4-maverick (moe) smoke models,
+    params from the reference. A dense prompt is prefilled at its own
+    length: its first token is the padded prefill's and its cache rows
+    [0, n) equal the padded prefill's; MoE's expert capacity counts the
+    padding, so a MoE prompt is still prefilled padded to prefill_len.
+    ``prefill_positions`` reads the positions run, and the scheduler's
+    tokens equal the JAX engine's (which pads every prompt)."""
+    pair = _f32_pair(*((j_yi, yi_6b) if family == "dense"
+                       else (j_llama4, llama4_maverick)))
+    tm, tp = pair[2:]
+    assert tm.reads_later_positions == (family == "moe")
+    prefill_len = 12
+    rng = np.random.RandomState(3)
+    plist = [rng.randint(1, 512, size=n).astype(np.int32)
+             for n in (3, prefill_len, 7, 1, 10)]
+    want_positions = sum(p.size for p in plist) if family == "dense" \
+        else prefill_len * len(plist)
+
+    tt = TPServeEngine(tm, tp, world=None, max_len=MAX_LEN, device="cpu")
+    tt.start_batch(len(plist), prefill_len)
+    for slot, p in enumerate(plist):
+        n = p.size
+        tok = tt.admit(slot, p)
+        padded = np.zeros((1, prefill_len), np.int32)
+        padded[0, :n] = p
+        logits, pcache = tt._local._prefill(padded, last_pos=[n - 1])
+        assert tok == int(logits[0, -1].argmax())
+        for kv in ("k", "v"):
+            torch.testing.assert_close(tt._cache[kv][:, slot, :n],
+                                       pcache[kv][:, 0, :n],
+                                       rtol=1e-5, atol=1e-5)
+    assert tt._cache["len"].tolist() == [p.size for p in plist]
+    assert tt.prefill_positions == want_positions
+
+    _, port = _schedulers(pair, plist, [5, 2, 7, 3, 4], prefill_len)
+    assert port.engine.prefill_positions == want_positions
